@@ -1,0 +1,89 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports no jax (the
+machine with the card has none), so run it without the repository's
+conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_aes_tpu.backend import numpy_backend as nb
+from tfhe_aes_tpu.models import luts, tables
+from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TOY_WIDE
+from tfhe_aes_tpu_torch.client.client import Client
+from tfhe_aes_tpu_torch.ops import (blind_rotate, cuda_blind_rotate, cuda_vp,
+                                    vertical_packing, wopbs)
+from tfhe_aes_tpu_torch.utils import torus
+
+pytestmark = pytest.mark.cuda
+
+U64 = np.uint64
+PARAM_TOY_L5 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_L5", pbs_level=5)
+PARAM_TOY_VP = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP",
+                                   cbs_level=1, cbs_base_log=15)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _keys(params, seed, dev):
+    client = Client(params, seed=seed)
+    return client, client.make_device_keys().to(dev)
+
+
+def _rotate_inputs(client, n_batch):
+    p = client.params
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, n_batch).astype(U64)
+    small = nb.lwe_encrypt(client.sk.lwe_key, bits << U64(63),
+                           p.lwe_noise_std, rng)
+    test = np.zeros((p.glwe_dimension + 1, p.polynomial_size), U64)
+    test[-1, :] = U64(1) << U64(60)
+    return small, test
+
+
+@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("n_batch", [1, 9, 128])
+def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
+    client, k = _keys(params, 11, dev)
+    small, test = _rotate_inputs(client, n_batch)
+    args = (k.rplan, params, k.bsk_limbs, torus.from_u64(small, dev),
+            torus.from_u64(test, dev))
+    want = blind_rotate.blind_rotate_plain(*args, k.rfwd_limbs,
+                                           k.rinv_crt_limbs, k.rot_table)
+    got = cuda_blind_rotate.blind_rotate_cuda(*args, k.fwd_full,
+                                              k.inv_crt_full, k.rot_table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch):
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    p = PARAM_TOY_VP
+    sbox = tables.sbox()
+    lut = torus.from_u64(luts.lut_polys_from_tables(p, sbox[None], 8), dev)
+    vals = (0x5A, 0x01, 0xFF, 0x80)
+    cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]), dev)
+    before = cuda_vp.vp_rotations_cuda.launches
+    got = wopbs.many_wopbs(k, cts, lut)
+    assert cuda_vp.vp_rotations_cuda.launches == before + 1
+
+    monkeypatch.setattr(vertical_packing, "vp_rotations",
+                        vertical_packing.vp_rotations_plain)
+    want = wopbs.many_wopbs(k, cts, lut)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    out = torus.to_u64(got)
+    for bi, b in enumerate(vals):
+        val = sum(int(client.decrypt_bits(out[bi, ob])) << ob
+                  for ob in range(8))
+        assert val == int(sbox[b])

@@ -1,0 +1,78 @@
+"""Builds the hand-written CUDA kernels (csrc/*.cu) and loads them.
+
+Each kernel file compiles with nvcc for sm_90a into its own shared library
+with a plain C interface, loaded through ctypes.  The build happens at first
+use, into ``tfhe_aes_tpu_torch/_build/`` (git-ignored), keyed by a hash of
+the sources and flags so a stale library is never loaded.  Nothing here
+runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; raises on any failure."""
+    if name in _libs:
+        return _libs[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1()
+    for part in (src, CSRC / "common.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    if not so.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = BUILD_DIR / f"tmp{os.getpid()}-{so.name}"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _libs[name] = lib
+    return lib
+
+
+def prime_args(plan):
+    """The per-prime constant arrays of a plan as ctypes host arrays."""
+    n = plan.n_primes
+    return ((ctypes.c_int * n)(*[int(p) for p in plan.p_i32]),
+            (ctypes.c_uint64 * n)(*[int(v) for v in plan.mk64]),
+            (ctypes.c_int64 * n)(*[int(v) for v in plan.fp]),
+            n, ctypes.c_uint64(int(plan.m64)))
+
+
+def expect(t, name: str, dtype, shape) -> None:
+    """Raise unless t is a CUDA tensor of this dtype and shape."""
+    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want CUDA {dtype} {tuple(shape)}, got "
+                         f"{t.device} {t.dtype} {tuple(t.shape)}")
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

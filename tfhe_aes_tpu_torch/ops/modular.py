@@ -1,0 +1,49 @@
+"""Exact modular arithmetic for the RNS/NTT pipeline (torch).
+
+Counterpart of tfhe_aes_tpu/ops/modular.py: balanced residues mod small
+primes p < 2^16 in int32, reduced by a Barrett step with an f32 reciprocal
+whose quotient is fixed up by conditional subtracts.  ``torch.round`` rounds
+half to even, as ``jnp.round`` does, so the quotient estimates match too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+I32 = torch.int32
+
+
+def barrett_reduce(t: torch.Tensor, p, inv_p) -> torch.Tensor:
+    """Balanced reduction mod p of int32 t with |t| < ~2^30.9.
+
+    p, inv_p: Python scalars or broadcastable int32 / float32 tensors.
+    """
+    q = t.to(torch.float32).mul_(inv_p).round_().to(I32)
+    r = q.mul_(p).neg_().add_(t)                     # t - q*p
+    half = (p - 1) // 2
+    r.sub_((r > half) * p)
+    return r.add_((r < -half) * p)
+
+
+def to_balanced_limbs2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Balanced residues (|x| < 2^15) -> two signed 8-bit limbs (lo, hi)."""
+    hi = (x + 128) >> 8
+    lo = x - (hi << 8)
+    return lo.to(torch.int8), hi.to(torch.int8)
+
+
+def host_balanced(x: np.ndarray, p: int) -> np.ndarray:
+    """Host: canonical residues [0,p) -> balanced [-(p-1)/2, (p-1)/2]."""
+    x = np.asarray(x) % p
+    return np.where(x > p // 2, x - p, x).astype(np.int64)
+
+
+def host_balanced_limbs2(x: np.ndarray) -> np.ndarray:
+    """Host version of to_balanced_limbs2 -> int8 [..., 2]."""
+    x = np.asarray(x, dtype=np.int64)
+    hi = (x + 128) >> 8
+    lo = x - (hi << 8)
+    if lo.min() < -128 or lo.max() > 127 or hi.min() < -128 or hi.max() > 127:
+        raise ValueError("residues too wide for two int8 limbs")
+    return np.stack([lo, hi], axis=-1).astype(np.int8)
