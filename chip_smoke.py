@@ -7,15 +7,28 @@ Phases, each printing its result on its own line; any failure raises and
 the script exits non-zero:
   0. environment: the card, the native host runtime, the kernel builds;
   1. the blind-rotate kernel against blind_rotate_plain, word for word, at
-     three toy sets x batches 1, 9, 128 and at PARAM_TPU batch 128; both
-     timed at the AES-round batch (128 bits per block);
+     three toy sets x batches 1, 9, 128 and at PARAM_TPU at the batches
+     the paths below give it (16 to 512 bits and the timed AES-round
+     batch, 128 bits per block), each timed;
   2. the vertical-packing kernel against vp_rotations_plain through a real
-     circuit bootstrap: a cbs_level=1 toy set, PARAM_TPU at 16 bytes x 8
-     bits (AES-round LUTs) and 4 bytes x 9 bits (ripple-add LUTs); both
-     timed at the AES-round shape;
+     circuit bootstrap: a cbs_level=1 toy set; PARAM_TPU at the paths'
+     byte-LUT shapes: AES rounds (L=24) and final rounds (S-box, L=8),
+     the ripple add (L=9) at 2, 4 and 32 blocks, the key-expansion round
+     (L=16), decrypt's L=8 and L=32 at 64 and 16 bytes, the SubWord and
+     pk-RCON refreshes at 4 and 12 bytes (L=8), each timed;
   3. the main path at PARAM_TPU through Client and Server: host keygen,
      key expansion, two CTR keystream batches at different offsets, host
-     decryption checked against plaintext AES, the kernels' launch counts.
+     decryption checked against plaintext AES, the kernels' launch counts;
+  4. device keygen: PARAM_TOY on the card equals the CPU leaf by leaf;
+     PARAM_TPU timed beside phase 1's host keygen; its keys saved to the
+     key cache in a temporary directory and loaded back to equal leaves;
+  5. the reference circuits at PARAM_TPU on those keys: pk-RCON key
+     expansion, aes_encrypt of the 4 NIST blocks, aes_decrypt back, each
+     timed and checked, with the kernels' launch counts;
+  6. the CLI in-process on the cached keys: a 2-block CTR run with
+     --pk-rcon --decrypt --noise-asserts, then the --test harness.
+Every launch count is read from zero around one run of a path (phases 3,
+5, 6); the comparisons with the plain versions are not counted.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
 """
@@ -23,22 +36,30 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
+KERNELS = ("blind_rotate", "vertical_packing")
+CACHE_SEED = 1          # the seed of phase 4's keys and phase 6's CLI runs
 
 
-def _timed(fn, *args):
-    """(result, ms) of fn(*args) on the card, synchronised."""
+def _timed(fn, *args, **kwargs):
+    """(result, ms) of fn(*args, **kwargs) on the card, synchronised."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
 
@@ -54,6 +75,147 @@ def _require_equal(got, want, what: str) -> float:
         raise AssertionError(f"{what}: kernel words differ from the plain "
                              f"version")
     return _max_abs_err(got, want)
+
+
+def _reset_launches(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def _read_launches(wrappers, path: str) -> dict:
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    if min(counts.values()) < 1:
+        raise AssertionError(f"{path}: a kernel was not launched: {counts}")
+    return counts
+
+
+def _run_cli(cli, argv) -> tuple[str, float]:
+    """cli.main(argv) in this process; echoes its output, raises unless it
+    returns 0.  Returns (output, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"phase 6:   {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
+    """Phases 4-6, with the key cache in $TFHE_AES_TPU_CACHE.  Returns the
+    launch counts of each path run."""
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu.models import aes_plain
+    from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TPU
+    from tfhe_aes_tpu_torch import cli
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.ops.keys import KEY_LEAVES
+    from tfhe_aes_tpu_torch.server import Server
+    from tfhe_aes_tpu_torch.utils import serialization, torus
+
+    def require_same_keys(got, want, what):
+        for name in KEY_LEAVES:
+            a, b = getattr(got, name), getattr(want, name)
+            if a.device != b.device:
+                a = a.to(b.device)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: leaf {name} differs")
+
+    # -- phase 4: device keygen and the key cache -----------------------------
+    toy_cpu = Client(PARAM_TOY, seed=11).make_device_keys(fast=True)
+    toy_card = Client(PARAM_TOY, seed=11).make_device_keys(fast=True,
+                                                          device=dev)
+    if any(getattr(toy_card, n).device.type != dev.type for n in KEY_LEAVES):
+        raise AssertionError("device keygen left a leaf off the card")
+    require_same_keys(toy_card, toy_cpu, "PARAM_TOY device keygen card/CPU")
+    print("phase 4: PARAM_TOY device keygen on the card == on the CPU, "
+          "leaf by leaf")
+    t0 = time.perf_counter()
+    client = Client(PARAM_TPU, seed=CACHE_SEED)
+    keys = client.make_device_keys(fast=True, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    print(f"phase 4: PARAM_TPU device keygen {keygen_s:.1f} s (host keygen, "
+          f"phase 1: {host_keygen_s:.1f} s)")
+    path = serialization.cache_path(PARAM_TPU, CACHE_SEED)
+    t0 = time.perf_counter()
+    serialization.save_keys(path, client.sk, keys)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk, loaded = serialization.load_keys(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = loaded.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not (np.array_equal(sk.lwe_key, client.sk.lwe_key)
+            and np.array_equal(sk.glwe_key, client.sk.glwe_key)):
+        raise AssertionError("key cache: secret keys differ")
+    require_same_keys(loaded, keys, "key cache round trip")
+    del loaded, toy_card, toy_cpu
+    print(f"phase 4: key cache {path.name} {path.stat().st_size / 2**20:.1f} "
+          f"MiB: save {save_s:.1f} s, load {load_s:.1f} s, to the card "
+          f"{upload_s:.1f} s; every leaf equal")
+
+    # -- phase 5: the reference circuits on those keys ------------------------
+    server = Server(keys, client.make_public_key(),
+                    rng=np.random.default_rng(7))
+    enc_key = torus.from_u64(client.encrypt_u128(cli.NIST_KEY), dev)
+    state = torus.from_u64(np.stack([client.encrypt_u128(p)
+                                     for p in cli.NIST_PLAINS]), dev)
+    _reset_launches(wrappers)
+    rks, pk_ms = _timed(server.aes_key_expansion, enc_key, pk_rcon=True)
+    ct, enc_ms = _timed(server.aes_encrypt, rks, state)
+    pt, dec_ms = _timed(server.aes_decrypt, rks, ct)
+    launches = _read_launches(wrappers, "phase 5")
+    rk_host = torus.to_u64(rks)
+    want_rk = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(cli.NIST_KEY))
+    for r in range(11):
+        if [client.decrypt_byte(rk_host[r, i]) for i in range(16)] \
+                != want_rk[r]:
+            raise AssertionError(f"pk-RCON round key {r} decrypts wrong")
+    ct_host, pt_host = torus.to_u64(ct), torus.to_u64(pt)
+    n = len(cli.NIST_PLAINS)
+    if [client.decrypt_state_u128(ct_host[i]) for i in range(n)] \
+            != list(cli.NIST_CIPHERS):
+        raise AssertionError("aes_encrypt of the NIST blocks is not AES")
+    if [client.decrypt_state_u128(pt_host[i]) for i in range(n)] \
+            != list(cli.NIST_PLAINS):
+        raise AssertionError("aes_decrypt does not give the plaintexts back")
+    print(f"phase 5: PARAM_TPU pk-RCON key expansion {pk_ms / 1e3:.2f} s, "
+          f"decrypts to the AES schedule")
+    print(f"phase 5: aes_encrypt {n} NIST blocks {enc_ms / 1e3:.2f} s, "
+          f"equal to AES; aes_decrypt {dec_ms / 1e3:.2f} s = "
+          f"{n / (dec_ms / 6e4):.3f} decrypt blocks/min, back to the "
+          f"plaintexts")
+    print(f"phase 5: launches {launches}")
+    del server, keys, rks, ct, pt, state, enc_key
+
+    # -- phase 6: the CLI, on the cached keys ---------------------------------
+    _reset_launches(wrappers)
+    seed = str(CACHE_SEED)
+    outs = [_run_cli(cli, ["--params", "tpu", "--seed", seed,
+                           "--number-of-outputs", "2", "--iv", hex(IV),
+                           "--key", hex(KEY), "--pk-rcon", "--decrypt",
+                           "--noise-asserts"]),
+            _run_cli(cli, ["--params", "tpu", "--seed", seed, "--test",
+                           "--test-random", "1"])]
+    cli_launches = _read_launches(wrappers, "phase 6")
+    for text, _ in outs:
+        if "loaded cached keys" not in text or "device keygen" in text:
+            raise AssertionError("the CLI did not load the key cache")
+    if "All 5 test cases passed." not in outs[1][0]:
+        raise AssertionError("the CLI test harness did not pass")
+    print(f"phase 6: CLI CTR run {outs[0][1]:.1f} s, --test harness "
+          f"{outs[1][1]:.1f} s, both from the key cache, both returned 0; "
+          f"launches {cli_launches}")
+    return {"reference circuits (phase 5)": launches,
+            "cli (phase 6)": cli_launches}
 
 
 def main() -> int:
@@ -83,6 +245,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     U64 = np.uint64
+    wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
+                "vertical_packing": cuda_vp.vp_rotations_cuda}
 
     # -- phase 0: environment ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,8 +259,8 @@ def main() -> int:
     if runtime.get_lib() is None:
         raise RuntimeError("the native host runtime did not build")
     t0 = time.perf_counter()
-    for name in ("blind_rotate", "vertical_packing"):
-        cuda_build.load(name)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(cuda_build.load, KERNELS))     # one nvcc per source
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({cuda_build.BUILD_DIR})")
 
@@ -140,17 +304,28 @@ def main() -> int:
     print(f"phase 1: PARAM_TPU host keygen {keygen_s:.1f} s, keys to card "
           f"{time.perf_counter() - t0:.1f} s")
 
-    small, test = rotate_inputs(PARAM_TPU, 128, client.sk.lwe_key)
-    got, want, _, _ = rotate_pair(keys, PARAM_TPU, small, test)
-    br_err = _require_equal(got, want, "blind rotate PARAM_TPU B=128")
+    # The batches (in bits) the paths give the rotate: 16 and 18 the CLI's
+    # 2-block ripple-add steps (8 and 9 bits a block), 32 the 4-byte
+    # SubWord WoPBS and a 4-block first ripple step, 36 a later one, 96
+    # the pk-RCON 12-byte refresh, 128 a 16-byte key-expansion or 1-block
+    # round, 256 and 512 a 2- and 4-block round, 8 and 9 x the timed
+    # batch its ripple add, and the timed AES round last.
     aes_bits = 128 * args.blocks2
-    small, test = rotate_inputs(PARAM_TPU, aes_bits, client.sk.lwe_key)
-    got, want, br_ms, br_plain_ms = rotate_pair(keys, PARAM_TPU, small, test)
-    br_err = max(br_err, _require_equal(got, want,
-                                        f"blind rotate PARAM_TPU B={aes_bits}"))
-    print(f"phase 1: blind rotate PARAM_TPU kernel == plain at B=128 and "
-          f"B={aes_bits}; B={aes_bits}: kernel {br_ms:.1f} ms, plain "
-          f"{br_plain_ms:.1f} ms")
+    br_err = 0.0
+    br_shapes = []
+    for n_batch in sorted({16, 18, 32, 36, 96, 128, 256, 512,
+                           8 * args.blocks2, 9 * args.blocks2}
+                          - {aes_bits}) + [aes_bits]:
+        small, test = rotate_inputs(PARAM_TPU, n_batch, client.sk.lwe_key)
+        got, want, br_ms, br_plain_ms = rotate_pair(keys, PARAM_TPU, small,
+                                                    test)
+        br_err = max(br_err, _require_equal(
+            got, want, f"blind rotate PARAM_TPU B={n_batch}"))
+        br_shapes.append({"shape": f"PARAM_TPU {n_batch} bits",
+                          "ms": br_ms, "plain_ms": br_plain_ms})
+        print(f"phase 1: blind rotate PARAM_TPU kernel == plain at "
+              f"B={n_batch}: kernel {br_ms:.1f} ms, plain {br_plain_ms:.1f} "
+              f"ms")
     del got, want, small, test
 
     # -- phase 2: vertical-packing kernel vs plain ---------------------------
@@ -211,24 +386,73 @@ def main() -> int:
     out, vp_err, _, _ = vp_case(keys, client, PARAM_TPU, vals16, fwd, 8)
     decrypt_lut_check(client, out, vals16, lambda bi, v: [
         (int(mul[o // 8][v]) >> (o % 8)) & 1 for o in range(24)], 24)
-    i_bytes = fhe_aes.counter_bytes(4, 0x1FE)
-    _, rest = fhe_aes.add_scalar_luts(PARAM_TPU, i_bytes)
-    vals9 = [0x0FF, 0x1FF, 0x000, 0x17F]
-    out, err9, _, _ = vp_case(keys, client, PARAM_TPU, vals9, rest[0], 9)
-    vp_err = max(vp_err, err9)
+    # The ripple add's per-block LUTs (L=9): its later steps (9 bits in)
+    # and its first (8 bits), at the paths' batches of 2, 4 and 32 blocks.
+    ripple = sorted({2, args.blocks, args.blocks2})
+    for n_blk in ripple:
+        i_bytes = fhe_aes.counter_bytes(n_blk, 0x1FE)
+        lsb, rest = fhe_aes.add_scalar_luts(PARAM_TPU, i_bytes)
+        vals9 = [(0x0FF, 0x1FF, 0x000, 0x17F)[i % 4] for i in range(n_blk)]
+        out, err, _, _ = vp_case(keys, client, PARAM_TPU, vals9, rest[0], 9)
+        vp_err = max(vp_err, err)
 
-    def want9(bi, v):
-        s = (v & 0xFF) + (v >> 8) + int(i_bytes[bi, 14])
-        return [((s % 256) >> o) & 1 for o in range(8)] + [int(s > 255)]
-    decrypt_lut_check(client, out, vals9, want9, 9)
+        def want9(bi, v, i_bytes=i_bytes):
+            s = (v & 0xFF) + (v >> 8) + int(i_bytes[bi, 14])
+            return [((s % 256) >> o) & 1 for o in range(8)] + [int(s > 255)]
+        decrypt_lut_check(client, out, vals9, want9, 9)
+        vals8 = [(0xFF, 0x01, 0x00, 0x7F)[i % 4] for i in range(n_blk)]
+        out, err, _, _ = vp_case(keys, client, PARAM_TPU, vals8, lsb, 8)
+        vp_err = max(vp_err, err)
+
+        def want8(bi, v, i_bytes=i_bytes):
+            s = v + int(i_bytes[bi, 15])
+            return [((s % 256) >> o) & 1 for o in range(8)] + [int(s > 255)]
+        decrypt_lut_check(client, out, vals8, want8, 9)
     aes_bytes = 16 * args.blocks2
     vals_t = [(13 * i + 5) % 256 for i in range(aes_bytes)]
     _, err_t, vp_ms, vp_plain_ms = vp_case(keys, client, PARAM_TPU, vals_t,
                                            fwd, 8)
     vp_err = max(vp_err, err_t)
-    print(f"phase 2: VP PARAM_TPU kernel == plain at 16 B x 8 bits, 4 B x 9 "
-          f"bits and {aes_bytes} B x 8 bits (L=24), all decrypt right; "
+    print(f"phase 2: VP PARAM_TPU kernel == plain at 16 B x 8 bits (L=24), "
+          f"the ripple add's LUTs (L=9, 9 and 8 bits) at {ripple} blocks "
+          f"and {aes_bytes} B x 8 bits (L=24), all decrypt right; "
           f"{aes_bytes} B: kernel {vp_ms:.1f} ms, plain {vp_plain_ms:.1f} ms")
+
+    # The other byte-LUT shapes of the paths: the final rounds' S-box (L=8)
+    # at 512, 64, 32 and 16 bytes; the 4- and 2-block AES rounds (64 and
+    # 32 B, L=24); the trivial key-expansion round (16 B, L=16); decrypt's
+    # InvSubBytes (L=8) and InvMixColumns multiples (L=32) at a 4-block
+    # round's 64 bytes and the CLI's 1-block 16; the SubWord (4 B, S-box)
+    # and the pk-RCON refreshes (12 B and 4 B, identity).
+    vp_shapes = [{"shape": f"PARAM_TPU {aes_bytes} B x 8 bits, L=24",
+                  "ms": vp_ms, "plain_ms": vp_plain_ms}]
+    fwd24 = ("L=24 S-box x1/x2/x3", fwd, mul)
+    inv_mul = ("L=32 mul9/11/13/14", fhe_aes._inv_mul_luts(PARAM_TPU),
+               [tables.gf_mul_table(c) for c in (9, 11, 13, 14)])
+    inv_sbox = ("L=8 inverse S-box", fhe_aes._sbox_lut(PARAM_TPU, True),
+                [tables.inv_sbox()])
+    fwd_sbox = ("L=8 S-box", fhe_aes._sbox_lut(PARAM_TPU, False), [sbox])
+    ident = ("L=8 identity", fhe_aes._identity_lut(PARAM_TPU),
+             [np.arange(256, dtype=np.uint64)])
+    refresh = ("L=16 identity + S-box", fhe_aes._refresh_sbox_lut(PARAM_TPU),
+               [np.arange(256, dtype=np.uint64), sbox])
+    for n_bytes, (label, lut_np, tabs) in (
+            (aes_bytes, fwd_sbox), (64, fwd24), (64, fwd_sbox), (32, fwd24),
+            (32, fwd_sbox), (16, fwd_sbox), (16, refresh), (64, inv_mul),
+            (64, inv_sbox), (16, inv_mul), (16, inv_sbox), (4, fwd_sbox),
+            (12, ident), (4, ident)):
+        vals_b = [(29 * i + 3) % 256 for i in range(n_bytes)]
+        out, err, ms, plain_ms = vp_case(keys, client, PARAM_TPU, vals_b,
+                                         lut_np, 8)
+        vp_err = max(vp_err, err)
+        decrypt_lut_check(client, out, vals_b, lambda bi, v, tabs=tabs: [
+            (int(tabs[o // 8][v]) >> (o % 8)) & 1
+            for o in range(8 * len(tabs))], 8 * len(tabs))
+        vp_shapes.append({"shape": f"PARAM_TPU {n_bytes} B x 8 bits, {label}",
+                          "ms": ms, "plain_ms": plain_ms})
+        print(f"phase 2: VP PARAM_TPU kernel == plain at {n_bytes} B x 8 "
+              f"bits, {label}, decrypts to the table; kernel {ms:.1f} ms, "
+              f"plain {plain_ms:.1f} ms")
 
     # -- phase 3: the main path ----------------------------------------------
     server = Server(keys)
@@ -261,18 +485,38 @@ def main() -> int:
           f"AES-128 CTR")
     print(f"phase 3: launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del server, keys, ks1, ks2, rks
+
+    cache_dir = tempfile.mkdtemp(prefix="tfhe_aes_smoke_keys_")
+    old_cache = os.environ.get("TFHE_AES_TPU_CACHE")
+    os.environ["TFHE_AES_TPU_CACHE"] = cache_dir
+    try:
+        paths = {"ctr (phase 3)": launches}
+        paths.update(_reference_phases(dev, wrappers, keygen_s))
+    finally:
+        if old_cache is None:
+            os.environ.pop("TFHE_AES_TPU_CACHE", None)
+        else:
+            os.environ["TFHE_AES_TPU_CACHE"] = old_cache
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    print(f"phase 6: key cache directory removed; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    def launch_fields(name):
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_aes_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_aes_tpu/ops/pallas_blind_rotate.py:73",
-         "launches": launches["blind_rotate"], "max_abs_err": br_err,
-         "ms": br_ms, "plain_ms": br_plain_ms},
+         **launch_fields("blind_rotate"), "max_abs_err": br_err,
+         "ms": br_ms, "plain_ms": br_plain_ms, "shapes": br_shapes},
         {"name": "vertical_packing", "route": "cuda",
          "source": "tfhe_aes_tpu_torch/csrc/vertical_packing.cu",
          "replaces": "tfhe_aes_tpu/ops/pallas_vp.py:63",
-         "launches": launches["vertical_packing"], "max_abs_err": vp_err,
-         "ms": vp_ms, "plain_ms": vp_plain_ms},
+         **launch_fields("vertical_packing"), "max_abs_err": vp_err,
+         "ms": vp_ms, "plain_ms": vp_plain_ms, "shapes": vp_shapes},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

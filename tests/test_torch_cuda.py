@@ -17,6 +17,7 @@ from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TOY_WIDE
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.ops import (blind_rotate, cuda_blind_rotate, cuda_vp,
                                     vertical_packing, wopbs)
+from tfhe_aes_tpu_torch.ops.keys import KEY_LEAVES
 from tfhe_aes_tpu_torch.utils import torus
 
 pytestmark = pytest.mark.cuda
@@ -66,11 +67,20 @@ def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
     assert torch.equal(got, want)
 
 
-def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch):
+_VP_TABLES = {                      # LUT stacks of the AES circuits
+    "sbox_L8": lambda: tables.sbox()[None],
+    "inv_sbox_L8": lambda: tables.inv_sbox()[None],
+    "inv_mul_L32": lambda: np.stack([tables.gf_mul_table(c)
+                                     for c in (9, 11, 13, 14)]),
+}
+
+
+@pytest.mark.parametrize("lut_kind", sorted(_VP_TABLES))
+def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind):
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     p = PARAM_TOY_VP
-    sbox = tables.sbox()
-    lut = torus.from_u64(luts.lut_polys_from_tables(p, sbox[None], 8), dev)
+    tabs = _VP_TABLES[lut_kind]()
+    lut = torus.from_u64(luts.lut_polys_from_tables(p, tabs, 8), dev)
     vals = (0x5A, 0x01, 0xFF, 0x80)
     cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]), dev)
     before = cuda_vp.vp_rotations_cuda.launches
@@ -84,6 +94,18 @@ def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch):
     assert torch.equal(got, want)
     out = torus.to_u64(got)
     for bi, b in enumerate(vals):
-        val = sum(int(client.decrypt_bits(out[bi, ob])) << ob
-                  for ob in range(8))
-        assert val == int(sbox[b])
+        for t, tab in enumerate(tabs):
+            val = sum(int(client.decrypt_bits(out[bi, 8 * t + ob])) << ob
+                      for ob in range(8))
+            assert val == int(tab[b])
+
+
+def test_fast_keygen_on_the_card_equals_the_cpu(dev):
+    """Device keygen with its products and staging on the card gives the
+    CPU's keys, leaf by leaf."""
+    want = Client(PARAM_TOY, seed=11).make_device_keys(fast=True)
+    got = Client(PARAM_TOY, seed=11).make_device_keys(fast=True, device=dev)
+    for name in KEY_LEAVES:
+        leaf = getattr(got, name)
+        assert leaf.is_cuda, name
+        assert torch.equal(leaf.cpu(), getattr(want, name)), name

@@ -44,7 +44,7 @@ def test_lut_builders_equal_jax():
     for name in ("_fwd_luts", "_refresh_sbox_lut"):
         np.testing.assert_array_equal(getattr(fhe_aes, name)(PARAM_TOY),
                                       getattr(jaes, name)(PARAM_TOY))
-    np.testing.assert_array_equal(fhe_aes._sbox_lut(PARAM_TOY),
+    np.testing.assert_array_equal(fhe_aes._sbox_lut(PARAM_TOY, inv=False),
                                   jaes._sbox_lut(PARAM_TOY, inv=False))
     np.testing.assert_array_equal(fhe_aes.trivial_rcon(PARAM_TOY),
                                   jaes.trivial_rcon(PARAM_TOY))
@@ -125,6 +125,13 @@ lut = torus.from_u64(luts.lut_polys_from_tables(PARAM_TOY,
 out = torus.to_u64(wopbs.many_wopbs(k, cts, lut))
 assert [c.decrypt_byte(out[i]) for i in range(2)] == \\
     [int(tables.sbox()[v]) for v in vals]
+from tfhe_aes_tpu_torch.utils import noise
+assert noise.audit_all(PARAM_TOY)["key_expansion_pk"]["wopbs_in"] == 5
+fast = Client(PARAM_TOY, seed=3).make_device_keys(fast=True)
+assert fast.bsk_limbs.shape == k.bsk_limbs.shape
+for name in ("cli", "utils.serialization", "client.keygen_fast",
+             "utils.noise_asserts", "utils.noise"):
+    assert "tfhe_aes_tpu_torch." + name in sys.modules, name
 assert not [m for m, v in sys.modules.items()
             if v is not None and m.split(".")[0] == "jax"]
 print("no-jax ok")

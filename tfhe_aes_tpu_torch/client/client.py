@@ -9,6 +9,8 @@ from_u64`` puts them on a device) and come back through ``.cpu()``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from tfhe_aes_tpu.backend import numpy_backend as nb
@@ -21,6 +23,25 @@ from ..utils import torus
 U64 = np.uint64
 
 
+@dataclasses.dataclass
+class PublicKey:
+    """LWE public key: zero-encryptions under the big key.  Encrypting
+    with it is a random binary combination of them plus the message, so
+    a server can encrypt public constants (RCON) without a secret."""
+    zeros: np.ndarray  # [n_pk, big+1] u64
+
+    def encrypt_bits(self, bits: np.ndarray,
+                     rng: np.random.Generator) -> np.ndarray:
+        """bits [...] in {0,1} -> [..., big+1] u64 at delta 2^63."""
+        bits = np.asarray(bits, dtype=np.uint64)
+        sel = rng.integers(0, 2, size=bits.shape + (self.zeros.shape[0],),
+                           dtype=np.uint64)
+        ct = np.einsum("...s,sj->...j", sel, self.zeros,
+                       dtype=np.uint64, casting="unsafe").astype(np.uint64)
+        ct[..., -1] += bits << U64(63)
+        return ct
+
+
 class Client:
     def __init__(self, params: ParamSet = PARAM_OPT, seed: int | None = None):
         """seed=None: ChaCha20 CSPRNG from OS entropy; an integer seed
@@ -29,10 +50,29 @@ class Client:
         self.rng = csprng.default_rng(seed)
         self.sk = nb.gen_secret_keys(params, self.rng)
 
-    def make_device_keys(self) -> keys_mod.DeviceKeys:
-        """Evaluation keys in device layout, on the CPU (host keygen; the
-        order of the reference's fast=False path).  Move with ``.to``."""
-        return keys_mod.make_device_keys(self.sk, self.rng)
+    def make_device_keys(self, fast: bool = False,
+                         device=None) -> keys_mod.DeviceKeys:
+        """Evaluation keys in device layout, on `device` (default CPU).
+
+        fast=True: device keygen (client/keygen_fast), the GLWE mask
+        products and the BSK staging on `device`; the draws of the JAX
+        package's fast path.  fast=False: host keygen, the draws of its
+        fast=False path.  The JAX package defaults to fast=True.
+        """
+        if fast:
+            from . import keygen_fast
+            return keygen_fast.make_device_keys_fast(self.sk, self.rng,
+                                                     device=device)
+        keys = keys_mod.make_device_keys(self.sk, self.rng)
+        return keys if device is None else keys.to(device)
+
+    def make_public_key(self, n_pk: int | None = None) -> PublicKey:
+        p = self.params
+        n_pk = n_pk or (p.big_lwe_dimension + 128)
+        zeros = nb.lwe_encrypt(self.sk.big_lwe_key,
+                               np.zeros(n_pk, dtype=np.uint64),
+                               p.glwe_noise_std, self.rng)
+        return PublicKey(zeros)
 
     # -- encryption ----------------------------------------------------------
     def encrypt_byte(self, byte: int) -> np.ndarray:

@@ -21,6 +21,7 @@ from ..utils import torus
 
 # Column-major ShiftRows permutation: new[i] = old[SHIFT[i]].
 SHIFT = tuple(aes_plain._SHIFT)
+INV_SHIFT = tuple(aes_plain._INV_SHIFT)
 
 # MixColumns as (byte index, variant) gathers over the fused-LUT outputs
 # [x, mul2(x), mul3(x)]: row r of column c sums variants per [2 3 1 1].
@@ -28,6 +29,12 @@ _MC_VAR = np.array([[1, 2, 0, 0],
                     [0, 1, 2, 0],
                     [0, 0, 1, 2],
                     [2, 0, 0, 1]])
+# InvMixColumns over the variants [mul9, mul11, mul13, mul14]: rows
+# (14 11 13 9; 9 14 11 13; 13 9 14 11; 11 13 9 14).
+_IMC_VAR = np.array([[3, 1, 2, 0],
+                     [0, 3, 1, 2],
+                     [2, 0, 3, 1],
+                     [1, 2, 0, 3]])
 
 
 def _mix_indices(var_table: np.ndarray):
@@ -51,8 +58,23 @@ def _fwd_luts(params) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _sbox_lut(params) -> np.ndarray:
-    return luts.lut_polys_from_tables(params, tables.sbox()[None], 8)
+def _inv_mul_luts(params) -> np.ndarray:
+    """4 LUTs {mul9, mul11, mul13, mul14} (decrypt path) -> [1, 32, C, N]."""
+    return luts.lut_polys_from_tables(
+        params, np.stack([tables.gf_mul_table(c) for c in (9, 11, 13, 14)]), 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _sbox_lut(params, inv: bool) -> np.ndarray:
+    t = tables.inv_sbox() if inv else tables.sbox()
+    return luts.lut_polys_from_tables(params, t[None], 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_lut(params) -> np.ndarray:
+    """Noise-refresh LUT of the pk-RCON key expansion."""
+    return luts.lut_polys_from_tables(
+        params, np.arange(256, dtype=np.uint64)[None], 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +96,10 @@ def add_round_key(state, rk):
 
 def shift_rows(state):
     return state[:, list(SHIFT)]
+
+
+def inv_shift_rows(state):
+    return state[:, list(INV_SHIFT)]
 
 
 def _byte_wopbs(keys: DeviceKeys, state, lut):
@@ -103,8 +129,28 @@ def aes_encrypt(keys: DeviceKeys, round_keys, state):
         mul = _byte_wopbs(keys, state, fwd_l)            # [B,16,24,big+1]
         mul = mul.reshape(mul.shape[:2] + (3, 8) + mul.shape[3:])
         state = add_round_key(_mix(shift_rows(mul), _MC_VAR), round_keys[rnd])
-    out = _byte_wopbs(keys, state, _on(_sbox_lut(p), state))
+    out = _byte_wopbs(keys, state, _on(_sbox_lut(p, False), state))
     return add_round_key(shift_rows(out), round_keys[10])
+
+
+def aes_decrypt(keys: DeviceKeys, round_keys, state):
+    """Batched AES-128 decryption: 9 rounds of InvSubBytes (one WoPBS,
+    L = 8), AddRoundKey, then the mul9/11/13/14 multiples (a second WoPBS,
+    L = 32) summed into InvMixColumns; the round key sits between the two
+    nonlinear passes, so a round costs two WoPBS where encryption's costs
+    one."""
+    p = keys.params
+    inv_sbox_l = _on(_sbox_lut(p, True), state)
+    inv_mul_l = _on(_inv_mul_luts(p), state)
+    state = add_round_key(state, round_keys[10])
+    for rnd in range(10, 1, -1):
+        st = _byte_wopbs(keys, inv_shift_rows(state), inv_sbox_l)
+        st = add_round_key(st, round_keys[rnd - 1])
+        mul = _byte_wopbs(keys, st, inv_mul_l)           # [B,16,32,big+1]
+        mul = mul.reshape(mul.shape[:2] + (4, 8) + mul.shape[3:])
+        state = _mix(mul, _IMC_VAR)
+    state = _byte_wopbs(keys, inv_shift_rows(state), inv_sbox_l)
+    return add_round_key(state, round_keys[0])
 
 
 def trivial_rcon(params) -> np.ndarray:
@@ -128,28 +174,56 @@ def _expand_glue(prev_rk, sub, rcon):
     return torch.cat([n0, n1, n2, n3], dim=0)
 
 
-def aes_key_expansion_staged(keys: DeviceKeys, enc_key):
-    """Trivial-RCON key expansion: 11 WoPBS calls of one shape.
+def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
+                      rcon_fresh: bool | None = None):
+    """enc_key [16, 8, big+1] -> round keys [11, 16, 8, big+1].
 
-    enc_key [16, 8, big+1] -> round keys [11, 16, 8, big+1].  Each round is
-    one 16-byte WoPBS whose identity outputs refresh the new round key and
-    whose SBOX outputs are the next round's SubWord; the prologue runs the
-    same WoPBS on the reordered input key and keeps the RotWord outputs.
+    rcon_cts [10, 8, big+1]: None takes the trivial noise-free encodings
+    (trivial_rcon); public-key-encrypted RCON (fresh, noise level 1)
+    selects the 3-WoPBS round, ``rcon_fresh`` overrides that choice.
+
+    Trivial RCON, one WoPBS per round: n0 = w0 + sub (level 2), n1 = w1 +
+    n0 (3), n2 = w2 + n1 (4), n3 = w3 + n2 (5 = the budget); one 16-byte
+    WoPBS with the {identity, SBOX} stack refreshes all four words and
+    yields the next round's SubWord from n3's bytes.  Fresh RCON would put
+    n3 at 6, so n0..n2 (3, 4, 5) are refreshed first and n3 = w3 + n2'
+    (2) by a third WoPBS, after the SubWord's own.
+
+    The trivial schedule gives the words of the JAX package's
+    aes_key_expansion_staged (which exists there only to compile one
+    WoPBS shape); its prologue WoPBS takes just the 4 RotWord bytes.
     """
     p = keys.params
-    refresh_sbox_l = _on(_refresh_sbox_lut(p), enc_key)
-    rcon_cts = _on(trivial_rcon(p), enc_key)
-    order = list(range(12)) + [13, 14, 15, 12]
-    out = wopbs.many_wopbs(keys, enc_key[order], refresh_sbox_l)
-    sub = out[12:16, 8:]
+    if rcon_fresh is None:
+        rcon_fresh = rcon_cts is not None
+    if rcon_cts is None:
+        rcon_cts = _on(trivial_rcon(p), enc_key)
+    sbox_l = _on(_sbox_lut(p, False), enc_key)
     rk = enc_key
     rks = [enc_key]
-    for r in range(10):
-        n = _expand_glue(rk, sub, rcon_cts[r])
-        out = wopbs.many_wopbs(keys, n, refresh_sbox_l)
-        rk = out[:, :8]
-        sub = out[[13, 14, 15, 12], 8:]
-        rks.append(rk)
+    if rcon_fresh:
+        ident = _on(_identity_lut(p), enc_key)
+        for r in range(10):
+            w = rk.reshape(4, 4, 8, rk.shape[-1])
+            temp = wopbs.many_wopbs(keys, w[3][[1, 2, 3, 0]], sbox_l)
+            temp[0] += rcon_cts[r]                       # level 2
+            n0 = w[0] + temp                             # 3 (byte 0)
+            n1 = w[1] + n0                               # 4
+            n2 = w[2] + n1                               # 5 = budget
+            fresh = wopbs.many_wopbs(keys, torch.cat([n0, n1, n2]), ident)
+            n3 = wopbs.many_wopbs(keys, w[3] + fresh[8:12], ident)
+            rk = torch.cat([fresh, n3])
+            rks.append(rk)
+    else:
+        refresh_sbox_l = _on(_refresh_sbox_lut(p), enc_key)
+        w3 = rk.reshape(4, 4, 8, rk.shape[-1])[3]
+        sub = wopbs.many_wopbs(keys, w3[[1, 2, 3, 0]], sbox_l)
+        for r in range(10):
+            out = wopbs.many_wopbs(keys, _expand_glue(rk, sub, rcon_cts[r]),
+                                   refresh_sbox_l)
+            rk = out[:, :8]
+            sub = out[[13, 14, 15, 12], 8:]
+            rks.append(rk)
     return torch.stack(rks)
 
 

@@ -133,30 +133,31 @@ def pack_bsk(params: ParamSet, rplan: ntt.NttPlan, bsk_u64: np.ndarray,
 BSK_STEP_PAD = 16
 
 
-def bsk_residues_to_device(res16: np.ndarray) -> np.ndarray:
-    """[n, P, R, k+1, N] int16 -> [n_pad, R*2(k+1), P*N] int8 limb planes.
+def bsk_residues_to_device(res16: torch.Tensor) -> torch.Tensor:
+    """[n, P, R, k+1, N] int16 -> [n_pad, R*2(k+1), P*N] int8 limb planes,
+    on res16's device.
 
     Row r*2(k+1) + j holds component j's lo limb (hi limb at j + k+1),
     the P primes side by side on the lane axis.
     """
     n_lwe, pcount, r_rows, kp1, n = res16.shape
-    x = np.ascontiguousarray(res16, dtype=np.int16)
-    hi8 = ((x + np.int16(128)) >> np.int16(8)).astype(np.int8)
-    lo8 = (x - (hi8.astype(np.int16) << np.int16(8))).astype(np.int8)
-    cat = np.concatenate([lo8, hi8], axis=3)           # [n,P,R,2(k+1),N]
+    x = res16.to(torch.int16)
+    hi8 = ((x + 128) >> 8).to(torch.int8)
+    lo8 = (x - (hi8.to(torch.int16) << 8)).to(torch.int8)
+    cat = torch.cat([lo8, hi8], dim=3)                 # [n,P,R,2(k+1),N]
     rows = cat.reshape(n_lwe, pcount, r_rows * 2 * kp1, n)
-    merged = np.ascontiguousarray(rows.transpose(0, 2, 1, 3)).reshape(
-        n_lwe, r_rows * 2 * kp1, pcount * n)
+    merged = rows.permute(0, 2, 1, 3).reshape(n_lwe, r_rows * 2 * kp1,
+                                              pcount * n)
     return pad_bsk_steps(merged)
 
 
-def pad_bsk_steps(merged: np.ndarray) -> np.ndarray:
+def pad_bsk_steps(merged: torch.Tensor) -> torch.Tensor:
     """Zero-pad the merged BSK's step axis to a multiple of BSK_STEP_PAD."""
     n_lwe = merged.shape[0]
     n_pad = -(-n_lwe // BSK_STEP_PAD) * BSK_STEP_PAD
     if n_pad == n_lwe:
-        return merged
-    out = np.zeros((n_pad,) + merged.shape[1:], merged.dtype)
+        return merged.contiguous()
+    out = merged.new_zeros((n_pad,) + tuple(merged.shape[1:]))
     out[:n_lwe] = merged
     return out
 
@@ -189,9 +190,25 @@ def make_rotate_plan(p: ParamSet) -> ntt.NttPlan:
 
 def _keys_from_arrays(params: ParamSet, plan: ntt.NttPlan,
                       rplan: ntt.NttPlan, leaves: dict) -> DeviceKeys:
+    """numpy leaves become CPU tensors; tensor leaves stay where they are."""
     return DeviceKeys(params=params, plan=plan, rplan=rplan, **{
-        name: torch.from_numpy(np.ascontiguousarray(leaves[name]))
+        name: leaves[name] if isinstance(leaves[name], torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(leaves[name]))
         for name in KEY_LEAVES})
+
+
+def host_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet) -> dict:
+    """The key-independent leaves: NTT matrices and twiddles of the plans."""
+    return dict(
+        fwd_limbs=plan.fwd_limbs,
+        inv_crt_limbs=plan.inv_crt_limbs,
+        rfwd_limbs=rplan.fwd_limbs,
+        rinv_crt_limbs=rplan.inv_crt_limbs,
+        fwd_full=ntt.fwd_cat_for(rplan, p.pbs_base_log),
+        inv_crt_full=ntt.inv_crt_full_host(rplan),
+        rot_table=ntt.rot_table_merged(rplan),
+        vp_fwd3=ntt.fwd_cat3_host(plan),
+        vp_inv_full=ntt.inv_crt_full_host(plan))
 
 
 def make_device_keys(sk: nb.SecretKeys, rng: np.random.Generator,
@@ -207,19 +224,11 @@ def make_device_keys(sk: nb.SecretKeys, rng: np.random.Generator,
     ksk = nb.ksk_gen(sk, rng)
     pfp = nb.pfpksk_gen(sk, rng)
     return _keys_from_arrays(p, plan, rplan, dict(
-        bsk_limbs=bsk_residues_to_device(
-            pack_bsk(p, rplan, bsk, glwe_key=sk.glwe_key)),
+        bsk_limbs=bsk_residues_to_device(torch.from_numpy(
+            pack_bsk(p, rplan, bsk, glwe_key=sk.glwe_key))),
         ksk_limbs=pack_ksk(p, ksk),
         pfpksk_limbs=pack_pfpksk(p, pfp),
-        fwd_limbs=plan.fwd_limbs,
-        inv_crt_limbs=plan.inv_crt_limbs,
-        rfwd_limbs=rplan.fwd_limbs,
-        rinv_crt_limbs=rplan.inv_crt_limbs,
-        fwd_full=ntt.fwd_cat_for(rplan, p.pbs_base_log),
-        inv_crt_full=ntt.inv_crt_full_host(rplan),
-        rot_table=ntt.rot_table_merged(rplan),
-        vp_fwd3=ntt.fwd_cat3_host(plan),
-        vp_inv_full=ntt.inv_crt_full_host(plan)))
+        **host_leaves(plan, rplan, p)))
 
 
 def keys_from_numpy(dkeys) -> DeviceKeys:

@@ -314,6 +314,32 @@ def _combine_limb_dots(plan: NttPlan, s_ll, s_mid, s_hh) -> torch.Tensor:
     return modular.barrett_reduce(s_ll + r_mid + r_hh, p, inv)
 
 
+def mac_shared(plan: NttPlan, dhat: torch.Tensor,
+               ghat: torch.Tensor) -> torch.Tensor:
+    """out[p,m,j,n] = sum_r dhat[p,m,r,n] * ghat[p,r,j,n] (balanced).
+
+    One operand shared by every row m (keygen: one secret key, many
+    masks): dhat [P, M, R, N], ghat [P, R, J, N].  R = k <= 4 terms, too
+    short a contraction for a matmul (batched over (p, n) it would need an
+    N-fold block-diagonal operand), so an unrolled elementwise limb MAC.
+    """
+    dl, dh = (x.to(I32) for x in modular.to_balanced_limbs2(dhat))
+    gl, gh = (x.to(I32) for x in modular.to_balanced_limbs2(ghat.to(I32)))
+    P, M, _, n = dhat.shape
+    shape = (P, M, ghat.shape[-2], n)
+    s_ll, s_mid, s_hh = (torch.zeros(shape, dtype=I32, device=dhat.device)
+                         for _ in range(3))
+    for r in range(ghat.shape[-3]):
+        dlr = dl[:, :, r, None, :]                      # [P,M,1,N]
+        dhr = dh[:, :, r, None, :]
+        glr = gl[:, None, r]                            # [P,1,J,N]
+        ghr = gh[:, None, r]
+        s_ll.addcmul_(dlr, glr)
+        s_mid.addcmul_(dlr, ghr).addcmul_(dhr, glr)
+        s_hh.addcmul_(dhr, ghr)
+    return _combine_limb_dots(plan, s_ll, s_mid, s_hh)
+
+
 def mac_batched(plan: NttPlan, dhat: torch.Tensor,
                 ghat: torch.Tensor) -> torch.Tensor:
     """out[p,b,f,j,n] = sum_r dhat[p,b,f,r,n] * ghat[p,b,r,j,n] (balanced).

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import noise_asserts
 from . import cbs as cbs_mod
 from . import keyswitch, vertical_packing
 from .keys import DeviceKeys
@@ -54,7 +55,11 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     lut_polys:     [B or 1, L, C, N] u64 words.
     Returns [B, L, big+1] fresh big-LWEs of each output bit.
     vp_chunk: bytes per tail chunk (default: chunk_bytes).
+    When utils/noise_asserts is armed, the input and the output are
+    checked against the noise model.
     """
+    if noise_asserts.enabled():
+        noise_asserts.check_big_lwe("wopbs_input", byte_bits_big, "input")
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
     small = extract_bits(keys, byte_bits_big)
     bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
@@ -68,4 +73,7 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
         outs.append(_stage_and_pack(
             keys, bigs[:, lo:hi].reshape(lev, (hi - lo) * nbits, np1),
             hi - lo, nbits, luts))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if noise_asserts.enabled():
+        noise_asserts.check_big_lwe("wopbs_output", out, "fresh")
+    return out
