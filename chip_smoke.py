@@ -7,9 +7,12 @@ Phases, each printing its result on its own line; any failure raises and
 the script exits non-zero:
   0. environment: the card, the native host runtime, the kernel builds;
   1. the blind-rotate kernel against blind_rotate_plain, word for word, at
-     three toy sets x batches 1, 9, 128 and at PARAM_TPU at the batches
-     the paths below give it (16 to 512 bits and the timed AES-round
-     batch, 128 bits per block), each timed;
+     four toy sets (one with 25 GGSW rows) x batches 1, 9, 128, at
+     PARAM_TPU at the batches the paths below give it (16 to 512 bits and
+     the timed AES-round batch, 128 bits per block) and at PARAM_OPT (the
+     CLI's default set, 25 rows) at 128 and 512 bits, each timed beside its
+     bound; then torch._int_mm on one step's product shapes as a yardstick
+     of the int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
      circuit bootstrap: a cbs_level=1 toy set; PARAM_TPU at the paths'
      byte-LUT shapes: AES rounds (L=24) and final rounds (S-box, L=8),
@@ -24,13 +27,15 @@ the script exits non-zero:
      key cache in a temporary directory and loaded back to equal leaves;
   5. the reference circuits at PARAM_TPU on those keys: pk-RCON key
      expansion, aes_encrypt of the 4 NIST blocks, aes_decrypt back, each
-     timed and checked, with the kernels' launch counts;
+     timed and checked, with the kernels' launch counts; then one more
+     aes_decrypt under torch.profiler, each kernel's device time;
   6. the CLI in-process on the cached keys: a 2-block CTR run with
      --pk-rcon --decrypt --noise-asserts, then the --test harness.
 Every launch count is read from zero around one run of a path (phases 3,
 5, 6); the comparisons with the plain versions are not counted.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
+Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ import sys
 import tempfile
 import time
 
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet, 700 W): the
+# bounds are the larger of operations over the int8 rate and bytes over the
+# memory rate.
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
 KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
 KERNELS = ("blind_rotate", "vertical_packing")
@@ -62,6 +73,44 @@ def _timed(fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what bounds it) of the least time the card could take."""
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rotate_bound(params, plan, n_bits: int) -> tuple[float, str]:
+    """A blind rotation of n_bits LWE bits: per step the forward product
+    [B R, dn] x [dn, 2 P N] and P inverse products [B (k+1), 2N] x [2N, 2N]
+    (int8); it reads the LWE batch, the test polynomial, n steps of BSK
+    rows, the NTT matrices and the twiddles, and writes the accumulators."""
+    n, kp1 = params.polynomial_size, params.glwe_dimension + 1
+    r_rows, pcount, steps = kp1 * params.pbs_level, plan.n_primes, \
+        params.lwe_dimension
+    pn = pcount * n
+    dn = 2 * n if params.pbs_base_log > 8 else n
+    ops = steps * (2 * n_bits * r_rows * dn * 2 * pn
+                   + 2 * n_bits * kp1 * 2 * n * 2 * n * pcount)
+    nbytes = (n_bits * (steps + 1) * 8 + kp1 * n * 8
+              + steps * r_rows * 2 * kp1 * pn + dn * 2 * pn
+              + pcount * 4 * n * n + 2 * n * pn * 2 + n_bits * kp1 * n * 8)
+    return _bound(ops, nbytes)
+
+
+def vp_bound(params, plan, n_bytes: int, L: int, nbits: int):
+    """The VP rotations of n_bytes x L accumulators over nbits selector
+    bits: per bit the forward product [M, 3N] x [3N, 2 P N] and P inverse
+    products [M, 2N] x [2N, 2N], M = n_bytes L (k+1); it reads and writes
+    the accumulators and reads the GGSW residues and the NTT matrices."""
+    n, kp1, pcount = params.polynomial_size, params.glwe_dimension + 1, \
+        plan.n_primes
+    m, pn = n_bytes * L * kp1, pcount * n
+    ops = nbits * (2 * m * 3 * n * 2 * pn + 2 * m * 2 * n * 2 * n * pcount)
+    nbytes = (2 * m * n * 8 + nbits * pcount * n_bytes * kp1 * kp1 * n * 4
+              + 3 * n * 2 * pn + pcount * 4 * n * n)
+    return _bound(ops, nbytes)
 
 
 def _max_abs_err(got, want) -> float:
@@ -105,16 +154,41 @@ def _run_cli(cli, argv) -> tuple[str, float]:
     return buf.getvalue(), time.perf_counter() - t0
 
 
+def _profile_decrypt(server, rks, ct, n_blocks: int) -> None:
+    """Where the time goes: one warm aes_decrypt under torch.profiler, the
+    device time of each kernel (self time, summed over launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (us if us is not None else e.self_cuda_time_total) / 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(server.aes_decrypt, rks, ct)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and dev_ms(e) > 0]
+    busy = sum(dev_ms(e) for e in kernels)
+    print(f"phase 5: profile of one warm aes_decrypt of {n_blocks} blocks: "
+          f"wall {wall:.1f} ms, kernels {busy:.1f} ms on the card "
+          f"({100 * busy / wall:.1f}% busy)")
+    for e in sorted(kernels, key=dev_ms, reverse=True)[:8]:
+        print(f"phase 5:   {dev_ms(e):9.1f} ms {100 * dev_ms(e) / busy:5.1f}% "
+              f"x{e.count:<6} {e.key[:70]}")
+
+
 def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
     """Phases 4-6, with the key cache in $TFHE_AES_TPU_CACHE.  Returns the
     launch counts of each path run."""
     import numpy as np
     import torch
-    from tfhe_aes_tpu.models import aes_plain
-    from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TPU
     from tfhe_aes_tpu_torch import cli
     from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import aes_plain
     from tfhe_aes_tpu_torch.ops.keys import KEY_LEAVES
+    from tfhe_aes_tpu_torch.params import PARAM_TOY, PARAM_TPU
     from tfhe_aes_tpu_torch.server import Server
     from tfhe_aes_tpu_torch.utils import serialization, torus
 
@@ -127,7 +201,8 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
                 raise AssertionError(f"{what}: leaf {name} differs")
 
     # -- phase 4: device keygen and the key cache -----------------------------
-    toy_cpu = Client(PARAM_TOY, seed=11).make_device_keys(fast=True)
+    toy_cpu = Client(PARAM_TOY, seed=11).make_device_keys(fast=True,
+                                                         device="cpu")
     toy_card = Client(PARAM_TOY, seed=11).make_device_keys(fast=True,
                                                           device=dev)
     if any(getattr(toy_card, n).device.type != dev.type for n in KEY_LEAVES):
@@ -194,6 +269,7 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
           f"{n / (dec_ms / 6e4):.3f} decrypt blocks/min, back to the "
           f"plaintexts")
     print(f"phase 5: launches {launches}")
+    _profile_decrypt(server, rks, ct, n)
     del server, keys, rks, ct, pt, state, enc_key
 
     # -- phase 6: the CLI, on the cached keys ---------------------------------
@@ -231,15 +307,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import numpy as np
-    from tfhe_aes_tpu import runtime
-    from tfhe_aes_tpu.backend import numpy_backend as nb
-    from tfhe_aes_tpu.models import aes_plain, luts, tables
-    from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TOY_WIDE, PARAM_TPU
+    from tfhe_aes_tpu_torch import runtime
+    from tfhe_aes_tpu_torch.backend import numpy_backend as nb
     from tfhe_aes_tpu_torch.client.client import Client
-    from tfhe_aes_tpu_torch.models import fhe_aes
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes, luts, tables
     from tfhe_aes_tpu_torch.ops import (blind_rotate, cbs, cuda_blind_rotate,
                                         cuda_build, cuda_vp, lwe,
                                         vertical_packing, wopbs)
+    from tfhe_aes_tpu_torch.params import (PARAM_OPT, PARAM_TOY,
+                                           PARAM_TOY_WIDE, PARAM_TPU)
     from tfhe_aes_tpu_torch.server import Server
     from tfhe_aes_tpu_torch.utils import torus
 
@@ -256,8 +332,7 @@ def main() -> int:
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    if runtime.get_lib() is None:
-        raise RuntimeError("the native host runtime did not build")
+    runtime.get_lib()                   # raises if the host runtime fails
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(cuda_build.load, KERNELS))     # one nvcc per source
@@ -284,9 +359,11 @@ def main() -> int:
         return got, want, ms, plain_ms
 
     toy_l5 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_L5", pbs_level=5)
-    for params in (PARAM_TOY, toy_l5, PARAM_TOY_WIDE):
+    toy_r25 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_R25",
+                                  glwe_dimension=4, pbs_level=5)
+    for params in (PARAM_TOY, toy_l5, PARAM_TOY_WIDE, toy_r25):
         client = Client(params, seed=11)
-        k = client.make_device_keys().to(dev)
+        k = client.make_device_keys(device=dev)
         for n_batch in (1, 9, 128):
             small, test = rotate_inputs(params, n_batch, client.sk.lwe_key)
             got, want, _, _ = rotate_pair(k, params, small, test)
@@ -296,7 +373,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     client = Client(PARAM_TPU, seed=0)
-    keys_host = client.make_device_keys()
+    keys_host = client.make_device_keys(device="cpu")
     keygen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     keys = keys_host.to(dev)
@@ -321,12 +398,62 @@ def main() -> int:
                                                     test)
         br_err = max(br_err, _require_equal(
             got, want, f"blind rotate PARAM_TPU B={n_batch}"))
+        br_bound, br_bound_by = rotate_bound(PARAM_TPU, keys.rplan, n_batch)
         br_shapes.append({"shape": f"PARAM_TPU {n_batch} bits",
-                          "ms": br_ms, "plain_ms": br_plain_ms})
+                          "ms": br_ms, "plain_ms": br_plain_ms,
+                          "bound_ms": br_bound})
         print(f"phase 1: blind rotate PARAM_TPU kernel == plain at "
               f"B={n_batch}: kernel {br_ms:.1f} ms, plain {br_plain_ms:.1f} "
-              f"ms")
+              f"ms, bound {br_bound:.2f} ms ({br_bound_by})")
     del got, want, small, test
+
+    # The CLI's default set: 8-bit digits (dn = N), 25 GGSW rows a bit.
+    t0 = time.perf_counter()
+    cl_opt = Client(PARAM_OPT, seed=0)
+    k_opt = cl_opt.make_device_keys(fast=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 1: PARAM_OPT device keygen "
+          f"{time.perf_counter() - t0:.1f} s")
+    for n_batch in (128, 512):
+        small, test = rotate_inputs(PARAM_OPT, n_batch, cl_opt.sk.lwe_key)
+        got, want, ms, plain_ms = rotate_pair(k_opt, PARAM_OPT, small, test)
+        br_err = max(br_err, _require_equal(
+            got, want, f"blind rotate PARAM_OPT B={n_batch}"))
+        bound, bound_by = rotate_bound(PARAM_OPT, k_opt.rplan, n_batch)
+        br_shapes.append({"shape": f"PARAM_OPT {n_batch} bits", "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound})
+        print(f"phase 1: blind rotate PARAM_OPT kernel == plain at "
+              f"B={n_batch}: kernel {ms:.1f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound:.2f} ms ({bound_by})")
+    del got, want, small, test, k_opt, cl_opt
+
+    # Yardstick of the int8 product rate: torch._int_mm on one PARAM_TPU
+    # step's product shapes at the timed batch (the port never calls it
+    # for the rotate).
+    r_rows = (PARAM_TPU.glwe_dimension + 1) * PARAM_TPU.pbs_level
+    kp1, n_poly = PARAM_TPU.glwe_dimension + 1, PARAM_TPU.polynomial_size
+    pcount = keys.rplan.n_primes
+    fwd_a = torch.ones(r_rows * aes_bits, 2 * n_poly, dtype=torch.int8,
+                       device=dev)
+    fwd_b = torch.ones(2 * n_poly, 2 * pcount * n_poly, dtype=torch.int8,
+                       device=dev)
+    inv_a = torch.ones(kp1 * aes_bits, 2 * n_poly, dtype=torch.int8,
+                       device=dev)
+    inv_b = torch.ones(2 * n_poly, 2 * n_poly, dtype=torch.int8, device=dev)
+    mm_ms = {}
+    for name, fn in (("forward", lambda: torch._int_mm(fwd_a, fwd_b)),
+                     ("inverse", lambda: [torch._int_mm(inv_a, inv_b)
+                                          for _ in range(pcount)])):
+        fn()
+        _, mm_ms[name] = _timed(lambda: [fn() for _ in range(5)])
+        mm_ms[name] /= 5
+    del fwd_a, fwd_b, inv_a, inv_b
+    print(f"phase 1: yardstick torch._int_mm, one PARAM_TPU step at "
+          f"{aes_bits} bits: forward [{r_rows * aes_bits}x{2 * n_poly}]x"
+          f"[{2 * n_poly}x{2 * pcount * n_poly}] {mm_ms['forward']:.3f} ms, "
+          f"inverse {pcount} x [{kp1 * aes_bits}x{2 * n_poly}]x"
+          f"[{2 * n_poly}x{2 * n_poly}] {mm_ms['inverse']:.3f} ms; the "
+          f"kernel's whole step {br_ms / PARAM_TPU.lwe_dimension:.3f} ms")
 
     # -- phase 2: vertical-packing kernel vs plain ---------------------------
     def vp_case(k, cl, params, values, lut_np, nbits):
@@ -355,7 +482,9 @@ def main() -> int:
         want, plain_ms = _timed(vertical_packing.vp_rotations_plain, k, acc,
                                 ggsw)
         err = _require_equal(got, want, f"VP {p.name} {B} bytes x {nbits}")
-        return torus.to_u64(lwe.sample_extract0(got)), err, ms, plain_ms
+        bound = vp_bound(p, k.plan, B, L, nbits)
+        return torus.to_u64(lwe.sample_extract0(got)), err, ms, plain_ms, \
+            bound
 
     def decrypt_lut_check(cl, out, values, want_fn, n_out):
         for bi, v in enumerate(values):
@@ -372,7 +501,7 @@ def main() -> int:
     # toy N=128 < 2^8: exercise the kernel on the 7 rotation bits of a
     # 7-bit table (the CMux tree for an 8th bit stays plain torch).
     t7 = np.arange(128, dtype=np.uint64) * 3 % 128
-    out, _, _, _ = vp_case(k_vp, cl_vp, toy_vp, [v % 128 for v in vals],
+    out, _, _, _, _ = vp_case(k_vp, cl_vp, toy_vp, [v % 128 for v in vals],
                            luts.lut_polys_from_tables(toy_vp, t7[None], 7), 7)
     decrypt_lut_check(cl_vp, out, [v % 128 for v in vals],
                       lambda bi, v: [(int(t7[v]) >> o) & 1 for o in range(8)],
@@ -383,7 +512,7 @@ def main() -> int:
     fwd = fhe_aes._fwd_luts(PARAM_TPU)
     mul = [sbox, tables.gf_mul_table(2)[sbox], tables.gf_mul_table(3)[sbox]]
     vals16 = [(37 * i + 11) % 256 for i in range(16)]
-    out, vp_err, _, _ = vp_case(keys, client, PARAM_TPU, vals16, fwd, 8)
+    out, vp_err, _, _, _ = vp_case(keys, client, PARAM_TPU, vals16, fwd, 8)
     decrypt_lut_check(client, out, vals16, lambda bi, v: [
         (int(mul[o // 8][v]) >> (o % 8)) & 1 for o in range(24)], 24)
     # The ripple add's per-block LUTs (L=9): its later steps (9 bits in)
@@ -393,7 +522,8 @@ def main() -> int:
         i_bytes = fhe_aes.counter_bytes(n_blk, 0x1FE)
         lsb, rest = fhe_aes.add_scalar_luts(PARAM_TPU, i_bytes)
         vals9 = [(0x0FF, 0x1FF, 0x000, 0x17F)[i % 4] for i in range(n_blk)]
-        out, err, _, _ = vp_case(keys, client, PARAM_TPU, vals9, rest[0], 9)
+        out, err, _, _, _ = vp_case(keys, client, PARAM_TPU, vals9, rest[0],
+                                    9)
         vp_err = max(vp_err, err)
 
         def want9(bi, v, i_bytes=i_bytes):
@@ -401,7 +531,7 @@ def main() -> int:
             return [((s % 256) >> o) & 1 for o in range(8)] + [int(s > 255)]
         decrypt_lut_check(client, out, vals9, want9, 9)
         vals8 = [(0xFF, 0x01, 0x00, 0x7F)[i % 4] for i in range(n_blk)]
-        out, err, _, _ = vp_case(keys, client, PARAM_TPU, vals8, lsb, 8)
+        out, err, _, _, _ = vp_case(keys, client, PARAM_TPU, vals8, lsb, 8)
         vp_err = max(vp_err, err)
 
         def want8(bi, v, i_bytes=i_bytes):
@@ -410,13 +540,14 @@ def main() -> int:
         decrypt_lut_check(client, out, vals8, want8, 9)
     aes_bytes = 16 * args.blocks2
     vals_t = [(13 * i + 5) % 256 for i in range(aes_bytes)]
-    _, err_t, vp_ms, vp_plain_ms = vp_case(keys, client, PARAM_TPU, vals_t,
-                                           fwd, 8)
+    _, err_t, vp_ms, vp_plain_ms, (vp_bound_ms, vp_bound_by) = vp_case(
+        keys, client, PARAM_TPU, vals_t, fwd, 8)
     vp_err = max(vp_err, err_t)
     print(f"phase 2: VP PARAM_TPU kernel == plain at 16 B x 8 bits (L=24), "
           f"the ripple add's LUTs (L=9, 9 and 8 bits) at {ripple} blocks "
           f"and {aes_bytes} B x 8 bits (L=24), all decrypt right; "
-          f"{aes_bytes} B: kernel {vp_ms:.1f} ms, plain {vp_plain_ms:.1f} ms")
+          f"{aes_bytes} B: kernel {vp_ms:.1f} ms, plain {vp_plain_ms:.1f} "
+          f"ms, bound {vp_bound_ms:.2f} ms ({vp_bound_by})")
 
     # The other byte-LUT shapes of the paths: the final rounds' S-box (L=8)
     # at 512, 64, 32 and 16 bytes; the 4- and 2-block AES rounds (64 and
@@ -425,7 +556,8 @@ def main() -> int:
     # round's 64 bytes and the CLI's 1-block 16; the SubWord (4 B, S-box)
     # and the pk-RCON refreshes (12 B and 4 B, identity).
     vp_shapes = [{"shape": f"PARAM_TPU {aes_bytes} B x 8 bits, L=24",
-                  "ms": vp_ms, "plain_ms": vp_plain_ms}]
+                  "ms": vp_ms, "plain_ms": vp_plain_ms,
+                  "bound_ms": vp_bound_ms}]
     fwd24 = ("L=24 S-box x1/x2/x3", fwd, mul)
     inv_mul = ("L=32 mul9/11/13/14", fhe_aes._inv_mul_luts(PARAM_TPU),
                [tables.gf_mul_table(c) for c in (9, 11, 13, 14)])
@@ -442,17 +574,17 @@ def main() -> int:
             (64, inv_sbox), (16, inv_mul), (16, inv_sbox), (4, fwd_sbox),
             (12, ident), (4, ident)):
         vals_b = [(29 * i + 3) % 256 for i in range(n_bytes)]
-        out, err, ms, plain_ms = vp_case(keys, client, PARAM_TPU, vals_b,
-                                         lut_np, 8)
+        out, err, ms, plain_ms, (bound, _) = vp_case(
+            keys, client, PARAM_TPU, vals_b, lut_np, 8)
         vp_err = max(vp_err, err)
         decrypt_lut_check(client, out, vals_b, lambda bi, v, tabs=tabs: [
             (int(tabs[o // 8][v]) >> (o % 8)) & 1
             for o in range(8 * len(tabs))], 8 * len(tabs))
         vp_shapes.append({"shape": f"PARAM_TPU {n_bytes} B x 8 bits, {label}",
-                          "ms": ms, "plain_ms": plain_ms})
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound})
         print(f"phase 2: VP PARAM_TPU kernel == plain at {n_bytes} B x 8 "
               f"bits, {label}, decrypts to the table; kernel {ms:.1f} ms, "
-              f"plain {plain_ms:.1f} ms")
+              f"plain {plain_ms:.1f} ms, bound {bound:.2f} ms")
 
     # -- phase 3: the main path ----------------------------------------------
     server = Server(keys)
@@ -511,12 +643,14 @@ def main() -> int:
          "source": "tfhe_aes_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_aes_tpu/ops/pallas_blind_rotate.py:73",
          **launch_fields("blind_rotate"), "max_abs_err": br_err,
-         "ms": br_ms, "plain_ms": br_plain_ms, "shapes": br_shapes},
+         "ms": br_ms, "plain_ms": br_plain_ms, "bound_ms": br_bound,
+         "bound_by": br_bound_by, "library_ms": None, "shapes": br_shapes},
         {"name": "vertical_packing", "route": "cuda",
          "source": "tfhe_aes_tpu_torch/csrc/vertical_packing.cu",
          "replaces": "tfhe_aes_tpu/ops/pallas_vp.py:63",
          **launch_fields("vertical_packing"), "max_abs_err": vp_err,
-         "ms": vp_ms, "plain_ms": vp_plain_ms, "shapes": vp_shapes},
+         "ms": vp_ms, "plain_ms": vp_plain_ms, "bound_ms": vp_bound_ms,
+         "bound_by": vp_bound_by, "library_ms": None, "shapes": vp_shapes},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

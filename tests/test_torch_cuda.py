@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain torch versions, on the card.
 
-Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports no jax (the
-machine with the card has none), so run it without the repository's
-conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports nothing of the
+JAX package and no jax (the machine with the card has none), so run it
+without the repository's conftest:
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
 import dataclasses
@@ -11,19 +12,22 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_aes_tpu.backend import numpy_backend as nb
-from tfhe_aes_tpu.models import luts, tables
-from tfhe_aes_tpu.params import PARAM_TOY, PARAM_TOY_WIDE
+from tfhe_aes_tpu_torch.backend import numpy_backend as nb
 from tfhe_aes_tpu_torch.client.client import Client
+from tfhe_aes_tpu_torch.models import luts, tables
 from tfhe_aes_tpu_torch.ops import (blind_rotate, cuda_blind_rotate, cuda_vp,
                                     vertical_packing, wopbs)
 from tfhe_aes_tpu_torch.ops.keys import KEY_LEAVES
+from tfhe_aes_tpu_torch.params import PARAM_TOY, PARAM_TOY_WIDE
 from tfhe_aes_tpu_torch.utils import torus
 
 pytestmark = pytest.mark.cuda
 
 U64 = np.uint64
 PARAM_TOY_L5 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_L5", pbs_level=5)
+# (k+1) * levels = 25 > 16 GGSW rows: the kernel pads each bit to 32 rows.
+PARAM_TOY_R25 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_R25",
+                                    glwe_dimension=4, pbs_level=5)
 PARAM_TOY_VP = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP",
                                    cbs_level=1, cbs_base_log=15)
 
@@ -37,7 +41,7 @@ def dev():
 
 def _keys(params, seed, dev):
     client = Client(params, seed=seed)
-    return client, client.make_device_keys().to(dev)
+    return client, client.make_device_keys(device=dev)
 
 
 def _rotate_inputs(client, n_batch):
@@ -51,8 +55,8 @@ def _rotate_inputs(client, n_batch):
     return small, test
 
 
-@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE],
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE,
+                                    PARAM_TOY_R25], ids=lambda p: p.name)
 @pytest.mark.parametrize("n_batch", [1, 9, 128])
 def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
     client, k = _keys(params, 11, dev)
@@ -103,7 +107,8 @@ def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind):
 def test_fast_keygen_on_the_card_equals_the_cpu(dev):
     """Device keygen with its products and staging on the card gives the
     CPU's keys, leaf by leaf."""
-    want = Client(PARAM_TOY, seed=11).make_device_keys(fast=True)
+    want = Client(PARAM_TOY, seed=11).make_device_keys(fast=True,
+                                                       device="cpu")
     got = Client(PARAM_TOY, seed=11).make_device_keys(fast=True, device=dev)
     for name in KEY_LEAVES:
         leaf = getattr(got, name)

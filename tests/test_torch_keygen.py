@@ -27,13 +27,13 @@ def fast_keys():
     """(JAX fast keys, torch fast keys, torch client) from one seed."""
     jd = JaxClient(PARAM_TOY, seed=11).make_device_keys(fast=True)
     tc = Client(PARAM_TOY, seed=11)
-    return jd, tc.make_device_keys(fast=True), tc
+    return jd, tc.make_device_keys(fast=True, device="cpu"), tc
 
 
 @pytest.fixture(scope="module")
 def host_keys():
     tc = Client(PARAM_TOY, seed=7)
-    return tc.sk, tc.make_device_keys()
+    return tc.sk, tc.make_device_keys(device="cpu")
 
 
 def _leaves_equal(got, want):

@@ -37,7 +37,7 @@ def ctx():
     jc = JaxClient(PARAM_TOY, seed=11)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=11)
-    return jc, jd, tc, tc.make_device_keys()
+    return jc, jd, tc, tc.make_device_keys(device="cpu")
 
 
 def test_lut_builders_equal_jax():
@@ -103,7 +103,8 @@ def test_server_key_expansion_equals_jax_staged(ctx):
 
 _NO_JAX = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["jax"] = None          # any import of jax now raises,
+sys.modules["tfhe_aes_tpu"] = None   # and of the JAX package
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -111,13 +112,13 @@ import tfhe_aes_tpu_torch
 for m in pkgutil.walk_packages(tfhe_aes_tpu_torch.__path__,
                                "tfhe_aes_tpu_torch."):
     importlib.import_module(m.name)
-from tfhe_aes_tpu.models import luts, tables
-from tfhe_aes_tpu.params import PARAM_TOY
+from tfhe_aes_tpu_torch.models import luts, tables
+from tfhe_aes_tpu_torch.params import PARAM_TOY
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.ops import wopbs
 from tfhe_aes_tpu_torch.utils import torus
 c = Client(PARAM_TOY, seed=3)
-k = c.make_device_keys()
+k = c.make_device_keys(device="cpu")
 vals = [7, 200]
 cts = torus.from_u64(np.stack([c.encrypt_byte(v) for v in vals]))
 lut = torus.from_u64(luts.lut_polys_from_tables(PARAM_TOY,
@@ -127,13 +128,13 @@ assert [c.decrypt_byte(out[i]) for i in range(2)] == \\
     [int(tables.sbox()[v]) for v in vals]
 from tfhe_aes_tpu_torch.utils import noise
 assert noise.audit_all(PARAM_TOY)["key_expansion_pk"]["wopbs_in"] == 5
-fast = Client(PARAM_TOY, seed=3).make_device_keys(fast=True)
+fast = Client(PARAM_TOY, seed=3).make_device_keys(fast=True, device="cpu")
 assert fast.bsk_limbs.shape == k.bsk_limbs.shape
 for name in ("cli", "utils.serialization", "client.keygen_fast",
              "utils.noise_asserts", "utils.noise"):
     assert "tfhe_aes_tpu_torch." + name in sys.modules, name
 assert not [m for m, v in sys.modules.items()
-            if v is not None and m.split(".")[0] == "jax"]
+            if v is not None and m.split(".")[0] in ("jax", "tfhe_aes_tpu")]
 print("no-jax ok")
 """
 

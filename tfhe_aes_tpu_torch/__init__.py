@@ -1,11 +1,13 @@
 """PyTorch + CUDA port of tfhe_aes_tpu (TFHE AES-128 CTR), for NVIDIA Hopper.
 
 The JAX package ``tfhe_aes_tpu`` is the reference this package is held
-against, function by function, word for word.  This package never imports
-jax.  From ``tfhe_aes_tpu`` it imports only the modules that are themselves
-jax-free: ``params``, ``backend.numpy_backend``,
-``utils.{crt,csprng,torus,noise_model}``, ``models.{tables,luts,aes_plain}``
-and ``runtime``.
+against, function by function, word for word.  This package imports
+nothing of ``tfhe_aes_tpu`` and never imports jax: the host modules it
+shares with the reference (``params``, ``backend.numpy_backend``,
+``utils.{crt,csprng,host_torus,noise_model}``,
+``models.{tables,luts,aes_plain}`` and ``runtime``) are copies, held
+against their originals by ``tests/test_torch_host_copies.py``.  Its entry
+points run on the card unless the caller asks for the CPU.
 
 Entry point: ``python -m tfhe_aes_tpu_torch.cli`` (see ``cli.py``).
 

@@ -23,11 +23,12 @@ import time
 import numpy as np
 import torch
 
-from tfhe_aes_tpu.models import aes_plain
-from tfhe_aes_tpu.params import PARAM_OPT, PARAM_TOY, PARAM_TPU
+from .models import aes_plain
+from .params import PARAM_OPT, PARAM_TOY, PARAM_TPU
 from .client.client import Client
 from .server import Server
 from .utils import noise_asserts, profiling, serialization, torus
+from .utils import device as device_mod
 
 PARAMS = {"prod": PARAM_OPT, "tpu": PARAM_TPU, "toy": PARAM_TOY}
 
@@ -73,12 +74,14 @@ def client_and_keys(params, seed, device, use_cache: bool):
 
 
 def run_test_harness(params, n_random: int, seed: int | None = None, *,
-                     device="cpu", use_cache: bool = True) -> None:
+                     device=None, use_cache: bool = True) -> None:
     """The reference's test harness: the 4 NIST vectors as one batch, then
     n_random random key/plaintext cases; each case runs pk-RCON key
     expansion, aes_encrypt, aes_decrypt and checks both against plaintext
     AES.  One keyset serves every case (evaluation keys do not depend on
-    the AES inputs)."""
+    the AES inputs).  `device` defaults to the card and raises without one
+    unless device="cpu"."""
+    device = device_mod.resolve(device)
     client, keys = client_and_keys(params, seed, device, use_cache)
     server = Server(keys, client.make_public_key())
 

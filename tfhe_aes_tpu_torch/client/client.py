@@ -13,12 +13,12 @@ import dataclasses
 
 import numpy as np
 
-from tfhe_aes_tpu.backend import numpy_backend as nb
-from tfhe_aes_tpu.models import aes_plain
-from tfhe_aes_tpu.params import PARAM_OPT, ParamSet
-from tfhe_aes_tpu.utils import csprng
+from ..backend import numpy_backend as nb
+from ..models import aes_plain
+from ..params import PARAM_OPT, ParamSet
 from ..ops import keys as keys_mod
-from ..utils import torus
+from ..utils import csprng, torus
+from ..utils import device as device_mod
 
 U64 = np.uint64
 
@@ -52,19 +52,21 @@ class Client:
 
     def make_device_keys(self, fast: bool = False,
                          device=None) -> keys_mod.DeviceKeys:
-        """Evaluation keys in device layout, on `device` (default CPU).
+        """Evaluation keys in device layout, on `device` (default: the
+        card; raises without one unless device="cpu").
 
         fast=True: device keygen (client/keygen_fast), the GLWE mask
         products and the BSK staging on `device`; the draws of the JAX
         package's fast path.  fast=False: host keygen, the draws of its
         fast=False path.  The JAX package defaults to fast=True.
         """
+        device = device_mod.resolve(device)
         if fast:
             from . import keygen_fast
             return keygen_fast.make_device_keys_fast(self.sk, self.rng,
                                                      device=device)
         keys = keys_mod.make_device_keys(self.sk, self.rng)
-        return keys if device is None else keys.to(device)
+        return keys.to(device)
 
     def make_public_key(self, n_pk: int | None = None) -> PublicKey:
         p = self.params

@@ -15,13 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfhe_aes_tpu.backend import numpy_backend as nb
-from tfhe_aes_tpu.params import ParamSet
-from tfhe_aes_tpu.utils import crt
-from tfhe_aes_tpu.utils import torus as host_torus
+from ..backend import numpy_backend as nb
+from ..params import ParamSet
 from ..ops import keys as keys_mod
 from ..ops import modular, ntt
-from ..utils import torus
+from ..utils import crt, host_torus, torus
+from ..utils import device as device_mod
 
 U64 = np.uint64
 
@@ -53,7 +52,7 @@ def glwe_encrypt_fast(plan: ntt.NttPlan, glwe_key: np.ndarray,
     m = int(np.prod(lead)) if lead else 1
     a = rng.integers(0, 1 << 64, size=(m, k, n), dtype=np.uint64)
     e = host_torus.sample_gaussian_torus(rng, std, (m, n))
-    device = torch.device(device or "cpu")
+    device = device_mod.resolve(device)
     shat = _key_ntt(plan, glwe_key, device)
     fwd = torch.from_numpy(plan.fwd_limbs).to(device)
     inv_crt = torch.from_numpy(plan.inv_crt_limbs).to(device)
@@ -136,7 +135,7 @@ def pack_device_keys(p: ParamSet, glwe_key: np.ndarray, bsk: np.ndarray,
     The mask rounding errors are cancelled into the bodies on the host
     (exact f64 convolutions, keys.cancel_mask_rounding); the rounding to
     q' bits, the residues and the forward NTT run on `device`."""
-    device = torch.device(device or "cpu")
+    device = device_mod.resolve(device)
     rplan = keys_mod.make_rotate_plan(p)
     n_lwe, lev, kp1, _, n = bsk.shape
     rows = bsk.transpose(0, 2, 1, 3, 4).reshape(-1, kp1, n)
@@ -161,7 +160,9 @@ def pack_device_keys(p: ParamSet, glwe_key: np.ndarray, bsk: np.ndarray,
 def make_device_keys_fast(sk: nb.SecretKeys, rng: np.random.Generator,
                           primes=None, device=None) -> keys_mod.DeviceKeys:
     """Device keygen: the same keys as keys.make_device_keys's layout from
-    the JAX fast path's draws, every leaf on `device` (default CPU)."""
+    the JAX fast path's draws, every leaf on `device` (default: the card;
+    raises without one unless device="cpu")."""
+    device = device_mod.resolve(device)
     p = sk.params
     plan = ntt.make_plan(p.polynomial_size, primes or crt.ntt_primes())
     bsk = bsk_gen_fast(sk, rng, plan, device)

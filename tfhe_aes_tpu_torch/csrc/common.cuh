@@ -1,6 +1,7 @@
-// Shared device code of the blind-rotate and vertical-packing kernels.
+// Device code of the vertical-packing kernel (the blind rotate has its own,
+// on wgmma: sm90_gemm.cuh).
 //
-// Both kernels run the same exact RNS external product per CMux step:
+// It runs the exact RNS external product per CMux step:
 //   digits -> (int8 tensor-core product against a prime-merged forward NTT
 //   matrix) -> per-prime MAC in the NTT domain -> (int8 tensor-core products
 //   against per-prime inverse-NTT matrices) -> explicit CRT -> acc += delta.

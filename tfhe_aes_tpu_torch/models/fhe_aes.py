@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from tfhe_aes_tpu.models import aes_plain, luts, tables
+from . import aes_plain, luts, tables
 from ..ops import wopbs
 from ..ops.keys import DeviceKeys
 from ..utils import torus

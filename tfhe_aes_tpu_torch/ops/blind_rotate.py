@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from tfhe_aes_tpu.params import ParamSet
+from ..params import ParamSet
 from ..utils import torus
 from . import decompose, lwe, modular, ntt
 

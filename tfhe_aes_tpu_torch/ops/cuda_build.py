@@ -3,8 +3,9 @@
 Each kernel file compiles with nvcc for sm_90a into its own shared library
 with a plain C interface, loaded through ctypes.  The build happens at first
 use, into ``tfhe_aes_tpu_torch/_build/`` (git-ignored), keyed by a hash of
-the sources and flags so a stale library is never loaded.  Nothing here
-runs at import time: the CPU tests import every module.
+every file under ``csrc/`` and the flags, so that no change to a source or
+a header can load a stale library.  Nothing here runs at import time: the
+CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -33,16 +34,22 @@ def _nvcc() -> str:
     return path
 
 
+def library_path(name: str) -> pathlib.Path:
+    """Where csrc/<name>.cu's library lives: keyed by the name, the flags
+    and the bytes of every file under csrc/."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for part in sorted(CSRC.iterdir()):
+        if part.is_file():
+            digest.update(part.name.encode() + b"\0" + part.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; raises on any failure."""
     if name in _libs:
         return _libs[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1()
-    for part in (src, CSRC / "common.cuh"):
-        digest.update(part.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    so = library_path(name)
     if not so.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(exist_ok=True)

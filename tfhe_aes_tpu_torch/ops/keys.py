@@ -13,10 +13,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from tfhe_aes_tpu import runtime
-from tfhe_aes_tpu.backend import numpy_backend as nb
-from tfhe_aes_tpu.params import ParamSet
-from tfhe_aes_tpu.utils import crt
+from .. import runtime
+from ..backend import numpy_backend as nb
+from ..params import ParamSet
+from ..utils import crt
 from . import modular, ntt
 
 # Names of the tensor leaves, in the order of tfhe_aes_tpu.ops.keys.DeviceKeys.
@@ -64,13 +64,12 @@ def poly_to_ntt_residues_host(primes, polys_u64: np.ndarray,
 
     The BALANCED representative (x - 2^q if x >= 2^(q-1)); for q < 64 the
     mod-2^64 residue path is reused by scaling x by 2^(64-q) and unscaling
-    the residues.  Uses the native runtime when it builds.
+    the residues, through the native runtime.
     """
     n = polys_u64.shape[-1]
     flat = np.ascontiguousarray(polys_u64, dtype=np.uint64).reshape(-1, n)
     if q_bits < 64:
         flat = flat << np.uint64(64 - q_bits)
-    native = runtime.get_lib() is not None
     outs = []
     for p in primes:
         res = runtime.balanced_residues(flat, p)
@@ -79,11 +78,7 @@ def poly_to_ntt_residues_host(primes, polys_u64: np.ndarray,
             res = modular.host_balanced(
                 res.astype(np.int64) * inv2, p).astype(np.int32)
         mat, _ = crt.ntt_matrices(p, n)
-        if native:
-            out = runtime.ntt_rows_mod(res, mat.astype(np.int32), p)
-        else:
-            out = modular.host_balanced(crt._matmul_mod_f64(
-                res.astype(np.int64), mat, p), p).astype(np.int32)
+        out = runtime.ntt_rows_mod(res, mat.astype(np.int32), p)
         outs.append(out.reshape(polys_u64.shape))
     return np.stack(outs)
 

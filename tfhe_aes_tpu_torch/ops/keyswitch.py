@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from tfhe_aes_tpu.params import ParamSet
+from ..params import ParamSet
 from . import decompose
 from .ntt import int8_dot
 

@@ -47,3 +47,34 @@ def host_balanced_limbs2(x: np.ndarray) -> np.ndarray:
     if lo.min() < -128 or lo.max() > 127 or hi.min() < -128 or hi.max() > 127:
         raise ValueError("residues too wide for two int8 limbs")
     return np.stack([lo, hi], axis=-1).astype(np.int8)
+
+
+# The CUDA blind-rotate kernels reduce with a 32-bit Barrett step
+# (csrc/blind_rotate.cu, reduce_canonical): u = x + off in [0, 2^32), then
+# r = u - umulhi(u, m) * p in [0, 2p), one conditional subtract.  With off
+# the least multiple of p >= 2^31 (< 2^31 + 2^16), u fits 32 bits for every
+# |x| <= BARRETT32_BOUND; host_barrett32 mirrors it step by step.
+BARRETT32_BOUND = (1 << 31) - (1 << 16) - 1
+
+
+def barrett32_consts(p: int) -> tuple[int, int]:
+    """(m, off) for a prime p < 2^16: m = floor(2^32 / p), off = the least
+    multiple of p >= 2^31."""
+    return (1 << 32) // p, -(-(1 << 31) // p) * p
+
+
+def host_barrett32(x, p: int, balanced: bool = False) -> np.ndarray:
+    """numpy mirror of the kernels' reduce_canonical (reduce_balanced when
+    `balanced`): x mod p for int |x| <= BARRETT32_BOUND, in 32-bit unsigned
+    steps."""
+    x = np.asarray(x, dtype=np.int64)
+    if x.size and np.abs(x).max() > BARRETT32_BOUND:
+        raise ValueError("input outside the 32-bit Barrett range")
+    m, off = barrett32_consts(p)
+    u = (x + off).astype(np.uint64)
+    if x.size and u.max() >= 1 << 32:
+        raise ValueError("x + off does not fit 32 bits")
+    quot = (u * np.uint64(m)) >> np.uint64(32)
+    r = (u - quot * np.uint64(p)) & np.uint64(0xFFFFFFFF)
+    r = np.where(r >= p, r - np.uint64(p), r).astype(np.int64)
+    return np.where(r > (p - 1) // 2, r - p, r) if balanced else r

@@ -22,8 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tfhe_aes_tpu.utils import crt
-from ..utils import torus
+from ..utils import crt, torus
 from . import modular
 
 I32 = torch.int32

@@ -11,11 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from tfhe_aes_tpu.models import tables
-from tfhe_aes_tpu.utils import csprng
-from .models import fhe_aes
+from .models import fhe_aes, tables
 from .ops.keys import DeviceKeys
-from .utils import torus
+from .utils import csprng, torus
 
 
 class Server:

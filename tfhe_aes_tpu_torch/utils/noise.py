@@ -16,7 +16,7 @@ from unittest import mock
 
 import torch
 
-from tfhe_aes_tpu.params import ParamSet
+from ..params import ParamSet
 from ..models import fhe_aes
 from ..ops import wopbs
 

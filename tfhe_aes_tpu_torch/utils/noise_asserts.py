@@ -24,7 +24,7 @@ import math
 
 import numpy as np
 
-from tfhe_aes_tpu.utils import noise_model
+from . import noise_model
 from . import torus
 
 U64 = np.uint64

@@ -15,9 +15,9 @@ import pathlib
 import numpy as np
 import torch
 
-from tfhe_aes_tpu.backend.numpy_backend import SecretKeys
-from tfhe_aes_tpu.params import (PARAM_OPT, PARAM_TOY, PARAM_TOY_N512,
-                                 PARAM_TOY_WIDE, PARAM_TPU, ParamSet)
+from ..backend.numpy_backend import SecretKeys
+from ..params import (PARAM_OPT, PARAM_TOY, PARAM_TOY_N512, PARAM_TOY_WIDE,
+                      PARAM_TPU, ParamSet)
 from ..ops import keys as keys_mod
 from ..ops import ntt
 
