@@ -14,11 +14,14 @@ the script exits non-zero:
      bound; then torch._int_mm on one step's product shapes as a yardstick
      of the int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
-     circuit bootstrap: a cbs_level=1 toy set; PARAM_TPU at the paths'
-     byte-LUT shapes: AES rounds (L=24) and final rounds (S-box, L=8),
-     the ripple add (L=9) at 2, 4 and 32 blocks, the key-expansion round
-     (L=16), decrypt's L=8 and L=32 at 64 and 16 bytes, the SubWord and
-     pk-RCON refreshes at 4 and 12 bytes (L=8), each timed;
+     circuit bootstrap: two cbs_level=1 toy sets (k+1 = 3; k+1 = 5 at a
+     batch that fills neither a digit tile's group of 25 accumulators nor
+     a 128-row tile); PARAM_TPU at the paths' byte-LUT shapes: AES rounds
+     (L=24) and final rounds (S-box, L=8), the ripple add (L=9) at 2, 4
+     and 32 blocks, the key-expansion round (L=16), decrypt's L=8 and
+     L=32 at 64 and 16 bytes, the SubWord and pk-RCON refreshes at 4 and
+     12 bytes (L=8), each timed beside its bound; then torch._int_mm on
+     one selector bit's product shapes as a yardstick;
   3. the main path at PARAM_TPU through Client and Server: host keygen,
      key expansion, two CTR keystream batches at different offsets, host
      decryption checked against plaintext AES, the kernels' launch counts;
@@ -75,6 +78,27 @@ def _timed(fn, *args, **kwargs):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _int_mm_ms(cases: dict) -> dict:
+    """ms of each case's torch._int_mm calls, the mean of five after a
+    warm-up.  A case is a list of ((rows, depth, columns), count): that
+    many products of ones [rows, depth] x [depth, columns] a call."""
+    import torch
+    out = {}
+    for name, products in cases.items():
+        ops = [(torch.ones(m, k, dtype=torch.int8, device="cuda"),
+                torch.ones(k, n, dtype=torch.int8, device="cuda"), count)
+               for (m, k, n), count in products]
+
+        def call():
+            for a, b, count in ops:
+                for _ in range(count):
+                    torch._int_mm(a, b)
+        call()
+        _, ms = _timed(lambda: [call() for _ in range(5)])
+        out[name] = ms / 5
+    return out
+
+
 def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(ms, what bounds it) of the least time the card could take."""
     t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -101,15 +125,16 @@ def rotate_bound(params, plan, n_bits: int) -> tuple[float, str]:
 
 def vp_bound(params, plan, n_bytes: int, L: int, nbits: int):
     """The VP rotations of n_bytes x L accumulators over nbits selector
-    bits: per bit the forward product [M, 3N] x [3N, 2 P N] and P inverse
-    products [M, 2N] x [2N, 2N], M = n_bytes L (k+1); it reads and writes
-    the accumulators and reads the GGSW residues and the NTT matrices."""
+    bits: per bit the forward product [M, 2N] x [2N, 2 P N] (a digit as
+    two int8 limbs) and P inverse products [M, 2N] x [2N, 2N], M =
+    n_bytes L (k+1); it reads and writes the accumulators and reads the
+    GGSW residues and the NTT matrices."""
     n, kp1, pcount = params.polynomial_size, params.glwe_dimension + 1, \
         plan.n_primes
     m, pn = n_bytes * L * kp1, pcount * n
-    ops = nbits * (2 * m * 3 * n * 2 * pn + 2 * m * 2 * n * 2 * n * pcount)
+    ops = nbits * (2 * m * 2 * n * 2 * pn + 2 * m * 2 * n * 2 * n * pcount)
     nbytes = (2 * m * n * 8 + nbits * pcount * n_bytes * kp1 * kp1 * n * 4
-              + 3 * n * 2 * pn + pcount * 4 * n * n)
+              + 2 * n * 2 * pn + pcount * 4 * n * n)
     return _bound(ops, nbytes)
 
 
@@ -174,7 +199,8 @@ def _profile_decrypt(server, rks, ct, n_blocks: int) -> None:
     print(f"phase 5: profile of one warm aes_decrypt of {n_blocks} blocks: "
           f"wall {wall:.1f} ms, kernels {busy:.1f} ms on the card "
           f"({100 * busy / wall:.1f}% busy)")
-    for e in sorted(kernels, key=dev_ms, reverse=True)[:8]:
+    ranked = sorted(kernels, key=dev_ms, reverse=True)
+    for e in ranked[:8] + [e for e in ranked[8:] if "tfhe::" in e.key]:
         print(f"phase 5:   {dev_ms(e):9.1f} ms {100 * dev_ms(e) / busy:5.1f}% "
               f"x{e.count:<6} {e.key[:70]}")
 
@@ -433,21 +459,10 @@ def main() -> int:
     r_rows = (PARAM_TPU.glwe_dimension + 1) * PARAM_TPU.pbs_level
     kp1, n_poly = PARAM_TPU.glwe_dimension + 1, PARAM_TPU.polynomial_size
     pcount = keys.rplan.n_primes
-    fwd_a = torch.ones(r_rows * aes_bits, 2 * n_poly, dtype=torch.int8,
-                       device=dev)
-    fwd_b = torch.ones(2 * n_poly, 2 * pcount * n_poly, dtype=torch.int8,
-                       device=dev)
-    inv_a = torch.ones(kp1 * aes_bits, 2 * n_poly, dtype=torch.int8,
-                       device=dev)
-    inv_b = torch.ones(2 * n_poly, 2 * n_poly, dtype=torch.int8, device=dev)
-    mm_ms = {}
-    for name, fn in (("forward", lambda: torch._int_mm(fwd_a, fwd_b)),
-                     ("inverse", lambda: [torch._int_mm(inv_a, inv_b)
-                                          for _ in range(pcount)])):
-        fn()
-        _, mm_ms[name] = _timed(lambda: [fn() for _ in range(5)])
-        mm_ms[name] /= 5
-    del fwd_a, fwd_b, inv_a, inv_b
+    mm_ms = _int_mm_ms({
+        "forward": [((r_rows * aes_bits, 2 * n_poly, 2 * pcount * n_poly),
+                     1)],
+        "inverse": [((kp1 * aes_bits, 2 * n_poly, 2 * n_poly), pcount)]})
     print(f"phase 1: yardstick torch._int_mm, one PARAM_TPU step at "
           f"{aes_bits} bits: forward [{r_rows * aes_bits}x{2 * n_poly}]x"
           f"[{2 * n_poly}x{2 * pcount * n_poly}] {mm_ms['forward']:.3f} ms, "
@@ -508,6 +523,22 @@ def main() -> int:
                       8)
     print("phase 2: VP PARAM_TOY_VP kernel == plain (4 bytes x 7 bits), "
           "decrypts to the table")
+    # k+1 = 5 digit rows an accumulator, as PARAM_TPU: 5 bytes x 8 outputs
+    # = 40 accumulators (groups of 25 and 15), 200 rows of X (128 + 72).
+    toy_vp4 = dataclasses.replace(toy_vp, name="PARAM_TOY_VP_K4",
+                                  glwe_dimension=4)
+    cl_vp = Client(toy_vp4, seed=11)
+    k_vp = cl_vp.make_device_keys().to(dev)
+    vals5 = [0x5A, 0x01, 0x7F, 0x00, 0x33]
+    out, _, _, _, _ = vp_case(k_vp, cl_vp, toy_vp4, vals5,
+                              luts.lut_polys_from_tables(toy_vp4, t7[None], 7),
+                              7)
+    decrypt_lut_check(cl_vp, out, vals5,
+                      lambda bi, v: [(int(t7[v]) >> o) & 1 for o in range(8)],
+                      8)
+    print("phase 2: VP PARAM_TOY_VP_K4 kernel == plain (5 bytes x 7 bits, "
+          "ragged group and tile), decrypts to the table")
+    del k_vp, cl_vp
 
     fwd = fhe_aes._fwd_luts(PARAM_TPU)
     mul = [sbox, tables.gf_mul_table(2)[sbox], tables.gf_mul_table(3)[sbox]]
@@ -585,6 +616,26 @@ def main() -> int:
         print(f"phase 2: VP PARAM_TPU kernel == plain at {n_bytes} B x 8 "
               f"bits, {label}, decrypts to the table; kernel {ms:.1f} ms, "
               f"plain {plain_ms:.1f} ms, bound {bound:.2f} ms")
+
+    # Yardstick of the int8 product rate: torch._int_mm on one selector
+    # bit's product shapes at the timed shape (the port never calls it for
+    # the rotations).
+    m_rows = aes_bytes * 24 * kp1
+    pcount = keys.plan.n_primes
+    # The forward product at the kernel's depth (a digit as two int8
+    # limbs, 2N) and at the three base-2^5 limbs' (3N) of the TPU kernel.
+    mm_ms = _int_mm_ms({
+        "forward": [((m_rows, 2 * n_poly, 2 * pcount * n_poly), 1)],
+        "forward3": [((m_rows, 3 * n_poly, 2 * pcount * n_poly), 1)],
+        "inverse": [((m_rows, 2 * n_poly, 2 * n_poly), pcount)]})
+    print(f"phase 2: yardstick torch._int_mm, one PARAM_TPU selector bit at "
+          f"{aes_bytes} B, L=24: forward [{m_rows}x{2 * n_poly}]x"
+          f"[{2 * n_poly}x{2 * pcount * n_poly}] {mm_ms['forward']:.3f} ms "
+          f"(three-limb digits, [{m_rows}x{3 * n_poly}]x"
+          f"[{3 * n_poly}x{2 * pcount * n_poly}]: {mm_ms['forward3']:.3f} "
+          f"ms), inverse {pcount} x [{m_rows}x{2 * n_poly}]x"
+          f"[{2 * n_poly}x{2 * n_poly}] {mm_ms['inverse']:.3f} ms; the "
+          f"kernel's whole bit {vp_ms / 8:.3f} ms")
 
     # -- phase 3: the main path ----------------------------------------------
     server = Server(keys)

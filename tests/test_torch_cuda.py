@@ -30,6 +30,10 @@ PARAM_TOY_R25 = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_R25",
                                     glwe_dimension=4, pbs_level=5)
 PARAM_TOY_VP = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP",
                                    cbs_level=1, cbs_base_log=15)
+# k + 1 = 5 digit rows an accumulator, as PARAM_TPU: 25 accumulators a
+# 128-row digit tile.
+PARAM_TOY_VP_K4 = dataclasses.replace(PARAM_TOY_VP, name="PARAM_TOY_VP_K4",
+                                      glwe_dimension=4)
 
 
 @pytest.fixture(scope="module")
@@ -79,13 +83,18 @@ _VP_TABLES = {                      # LUT stacks of the AES circuits
 }
 
 
+# 5 bytes at k + 1 = 5: 40 or 160 accumulators fill neither a whole number
+# of 25-accumulator groups nor of 128-row tiles of X.
+@pytest.mark.parametrize("p,vals", [
+    (PARAM_TOY_VP, (0x5A, 0x01, 0xFF, 0x80)),
+    (PARAM_TOY_VP_K4, (0x5A, 0x01, 0xFF, 0x80, 0x33)),
+], ids=lambda v: getattr(v, "name", None))
 @pytest.mark.parametrize("lut_kind", sorted(_VP_TABLES))
-def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind):
-    client, k = _keys(PARAM_TOY_VP, 11, dev)
-    p = PARAM_TOY_VP
+def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind, p,
+                                               vals):
+    client, k = _keys(p, 11, dev)
     tabs = _VP_TABLES[lut_kind]()
     lut = torus.from_u64(luts.lut_polys_from_tables(p, tabs, 8), dev)
-    vals = (0x5A, 0x01, 0xFF, 0x80)
     cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]), dev)
     before = cuda_vp.vp_rotations_cuda.launches
     got = wopbs.many_wopbs(k, cts, lut)
@@ -102,6 +111,32 @@ def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind):
             val = sum(int(client.decrypt_bits(out[bi, 8 * t + ob])) << ob
                       for ob in range(8))
             assert val == int(tab[b])
+
+
+@pytest.mark.parametrize("params,n_bytes,n_luts", [
+    (PARAM_TOY_VP, 7, 9),       # 63 accumulators: groups of 42 and 21
+    (PARAM_TOY_VP_K4, 5, 9),    # 45 accumulators: groups of 25 and 20
+    (PARAM_TOY_VP_K4, 3, 24),   # 72 accumulators, 24 outputs a byte
+    (PARAM_TOY_VP_K4, 11, 8),   # a digit tile's group spans 5 bytes
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_vp_kernel_matches_plain_at_ragged_shapes(dev, params, n_bytes,
+                                                  n_luts):
+    """Random accumulators and balanced GGSW residues at byte and LUT counts
+    that leave a ragged group of accumulators and a ragged tile of X."""
+    _, k = _keys(params, 11, dev)
+    kp1, n, nbits = params.glwe_dimension + 1, params.polynomial_size, 7
+    assert n_bytes * n_luts % cuda_vp.group_size(kp1)
+    assert n_bytes * n_luts * kp1 % cuda_vp.TILE_ROWS
+    rng = np.random.default_rng(n_bytes * n_luts)
+    acc = torus.from_u64(rng.integers(
+        0, 1 << 64, (n_bytes, n_luts, kp1, n), dtype=np.uint64), dev)
+    ggsw = torch.stack([torch.from_numpy(rng.integers(
+        -(q - 1) // 2, (q - 1) // 2 + 1, (nbits, n_bytes, kp1, kp1, n)
+    ).astype(np.int32)) for q in k.plan.primes], dim=1).to(dev)
+    want = vertical_packing.vp_rotations_plain(k, acc, ggsw)
+    got = cuda_vp.vp_rotations_cuda(k, acc, ggsw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_fast_keygen_on_the_card_equals_the_cpu(dev):

@@ -69,6 +69,7 @@
 // Exact by construction: the products are exact int32 sums, the reductions
 // exact, and the CRT alpha uses the same 2^-40 fixed point as the plain
 // version, so the words equal blind_rotate_plain's bit for bit.
+#include "rns32.cuh"
 #include "sm90_gemm.cuh"
 
 namespace tfhe {
@@ -80,7 +81,6 @@ using sm90::kThreads;
 using sm90::kmajor_col;
 using sm90::kmajor_row;
 
-constexpr int kMaxPrimes = 6;
 // K1: 64 residue columns (+ their hi columns) a tile, four stages, two
 // blocks an SM so that one block's epilogue overlaps the other's products.
 constexpr int kCols1 = 64, kBN1 = 2 * kCols1, kStages1 = 4, kBlocks1 = 2;
@@ -90,21 +90,6 @@ constexpr int kBitStride1 = kConsumers / kCols1;
 constexpr int kCols2 = 32, kBN2 = 2 * kCols2, kStages2 = 3, kBlocks2 = 2;
 constexpr int kMaxBitsPerThread = kRowsA / 16 / kBitStride1;  // rpad 16
 
-// One prime's 32-bit Barrett constants: m = floor(2^32 / p), off = the
-// least multiple of p >= 2^31, half = (p - 1) / 2.
-struct Prime32 {
-  uint32_t p, m, off, half;
-};
-
-struct RotConsts {
-  Prime32 pr[kMaxPrimes];
-  unsigned long long mk[kMaxPrimes];  // (M / p_k) mod 2^q
-  long long fp[kMaxPrimes];           // floor(2^40 / p_k)
-  unsigned long long m;               // M mod 2^q
-  unsigned long long qmask;
-  int count;
-};
-
 // The shapes of one rotate call.  Every scratch operand is below 2^31
 // bytes (checked by the wrapper), so offsets into it are 32-bit.
 struct Shape {
@@ -113,25 +98,6 @@ struct Shape {
   int rows2;    // X rows a prime: B * J padded to 128
   int bp_rows;  // K1's B operand rows: 2 kCols1 a column tile
 };
-
-// x mod p in [0, p) for int32 x < 2^31 - 2^16: u = x + off lies in
-// [0, 2^32) (off < 2^31 + 2^16), and Barrett's quotient __umulhi(u, m) is
-// floor(u / p) or one less.
-__device__ __forceinline__ int reduce_canonical(int x, const Prime32& q) {
-  const uint32_t u = static_cast<uint32_t>(x) + q.off;
-  const uint32_t r = u - __umulhi(u, q.m) * q.p;
-  return static_cast<int>(r >= q.p ? r - q.p : r);
-}
-
-// Balanced residue in [-(p-1)/2, (p-1)/2], same range.
-__device__ __forceinline__ int reduce_balanced(int x, const Prime32& q) {
-  const int r = reduce_canonical(x, q);
-  return r > static_cast<int>(q.half) ? r - static_cast<int>(q.p) : r;
-}
-
-__device__ __forceinline__ uint32_t pack16(int lo, int hi) {
-  return (static_cast<uint32_t>(hi) << 16) | (static_cast<uint32_t>(lo) & 0xFFFF);
-}
 
 // Balanced gadget digits of one accumulator word (row m2 = b (k+1) + u of
 // acc) into the digit rows b * rpad + u * lev + l of A; a_lo (a_hi) is the
@@ -183,7 +149,7 @@ br_forward_mac_kernel(const int8_t* __restrict__ A,
                       const int8_t* __restrict__ bsk,
                       const int16_t* __restrict__ rot,
                       const int32_t* __restrict__ tilde, int tstride,
-                      int step, Shape s, RotConsts c,
+                      int step, Shape s, RnsConsts c,
                       int8_t* __restrict__ X) {
   using Ring = sm90::Ring<kBN1, kStages1>;
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -324,7 +290,7 @@ br_forward_mac_kernel(const int8_t* __restrict__ A,
 // the last step), for 128 (bit, component) rows x 32 coefficients.
 __global__ void __launch_bounds__(kThreads, kBlocks2)
 br_inverse_crt_kernel(const int8_t* __restrict__ X,
-                      const int8_t* __restrict__ inv, Shape s, RotConsts c,
+                      const int8_t* __restrict__ inv, Shape s, RnsConsts c,
                       long long* __restrict__ acc, int8_t* __restrict__ A) {
   using Ring = sm90::Ring<kBN2, kStages2>;
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -405,17 +371,8 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
     const int r = threadIdx.x / kCols2 + kRowStep * i;
     const int m2 = rt * kRowsA + r;
     if (m2 >= mrows) continue;
-    unsigned long long x = 0;
-    long long afx = 0;
-#pragma unroll
-    for (int k = 0; k < kMaxPrimes; ++k) {
-      if (k >= c.count) break;
-      const long long y = ys[(k * kRowsA + r) * kCols2 + col];
-      x += static_cast<unsigned long long>(y) * c.mk[k];
-      afx += y * c.fp[k];
-    }
-    const long long alpha = (afx + (1LL << 39)) >> 40;
-    x -= static_cast<unsigned long long>(alpha) * c.m;
+    const unsigned long long x = crt_word(
+        c, [&](int k) { return ys[(k * kRowsA + r) * kCols2 + col]; });
     const unsigned long long v =
         (static_cast<unsigned long long>(accs[r * kCols2 + col]) + x) & c.qmask;
     acc[(long long)m2 * s.N + n] = static_cast<long long>(v);
@@ -425,7 +382,7 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
 
 using ForwardKernel = void (*)(const int8_t*, const int8_t*, const int8_t*,
                                const int16_t*, const int32_t*, int, int, Shape,
-                               RotConsts, int8_t*);
+                               RnsConsts, int8_t*);
 
 static ForwardKernel forward_kernel(int kp1) {
   switch (kp1) {
@@ -439,12 +396,6 @@ static ForwardKernel forward_kernel(int kp1) {
 }  // namespace tfhe
 
 using namespace tfhe;
-
-#define TFHE_CHECK(call)                   \
-  do {                                     \
-    const cudaError_t e_ = (call);         \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
 
 // Runs n_steps CMux steps on acc [B][k+1][N] in place.  All pointers are
 // device memory except the per-prime constant arrays (host).  fwd_tiles:
@@ -466,16 +417,8 @@ extern "C" int tfhe_blind_rotate(
       kp1 < 2 || kp1 > 5 || blog > 12 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RotConsts c{};
-  for (int k = 0; k < n_primes; ++k) {
-    c.pr[k] = Prime32{(uint32_t)primes[k], barrett_m[k], barrett_off[k],
-                      (uint32_t)(primes[k] - 1) / 2};
-    c.mk[k] = mk[k];
-    c.fp[k] = fp[k];
-  }
-  c.m = m;
-  c.qmask = q >= 64 ? ~0ULL : (1ULL << q) - 1;
-  c.count = n_primes;
+  const RnsConsts c =
+      make_consts(primes, barrett_m, barrett_off, mk, fp, n_primes, m, q);
 
   Shape s{};
   s.B = B;

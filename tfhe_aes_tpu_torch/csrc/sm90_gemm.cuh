@@ -224,8 +224,7 @@ struct Ring {
   // Consumers (both warpgroups): n stages, K blocks of kb_per_tile stages
   // per output tile.  The first stage of a tile overwrites d.  Each stage
   // is released as soon as its wgmma group has completed, so the producer
-  // keeps STAGES - 1 copies in flight (keeping a second group in flight
-  // instead was slower on the H100); after the last stage of a tile,
+  // keeps STAGES - 1 copies in flight; after the last stage of a tile,
   // epi(tile) runs.
   template <class Epi>
   __device__ void consume(int n, int kb_per_tile, int (&d)[BN / 2], Epi epi) {
@@ -246,6 +245,44 @@ struct Ring {
       wgmma_wait<0>();
       if (leader) mbar_arrive(&empty[s]);
       if (kb == kb_per_tile - 1) epi(i / kb_per_tile);
+    }
+  }
+
+  // The same, with a second wgmma group in flight: stage i is started before
+  // stage i - 1 is waited for and released, so the tensor cores do not
+  // drain between the stages of a tile (n % kb_per_tile == 0).  The waits
+  // sit in straight-line code of the tile loop: a wait in a branch made
+  // ptxas serialize the wgmma (its note C7518), and that form was slower
+  // than consume().  While a group is in flight its accumulators must stay
+  // in their registers: use this only in a kernel that ptxas compiles
+  // without spills (with 96 registers and 112 bytes of stack the vertical
+  // packing's forward kernel gave wrong words; at 168 registers its inverse
+  // kernel is exact and a seventh faster).
+  template <class Epi>
+  __device__ void consume_pipelined(int n, int kb_per_tile, int (&d)[BN / 2],
+                                    Epi epi) {
+    const int wg = threadIdx.x >> 7;
+    const bool leader = (threadIdx.x & 127) == 0;
+    for (int t = 0, i = 0; t < n / kb_per_tile; ++t) {
+      for (int kb = 0; kb < kb_per_tile; ++kb, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        const uint8_t* a = buf + s * kStageBytes + wg * (kABytes / 2);
+        const uint8_t* b = buf + s * kStageBytes + kABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk)
+          wgmma_tile<BN>(d, desc_kmajor(a + kk * 256),
+                         desc_kmajor(b + kk * 256), kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (leader && kb > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) asm volatile("" : "+r"(d[r])::"memory");
+      if (leader) mbar_arrive(&empty[(i - 1) % STAGES]);
+      epi(t);
     }
   }
 };

@@ -4,9 +4,9 @@ Counterpart of tfhe_aes_tpu/ops/pallas_blind_rotate.blind_rotate_pallas:
 same inputs, same words out.  The kernel's C entry point runs all n CMux
 steps on PyTorch's current stream, two launches a step; this wrapper does
 the setup and the final rescale in torch, lays the NTT matrices out in the
-k-major tile order the kernel's bulk copies read (``kmajor_tiles``),
-allocates the two scratch operands, and counts its launches in
-``blind_rotate_cuda.launches``.
+k-major tile order the kernel's bulk copies read (``kmajor_tiles``, once
+per key set: ``cuda_build.derived``), allocates the two scratch operands,
+and counts its launches in ``blind_rotate_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -57,12 +57,13 @@ def forward_tiles(fwd_full: torch.Tensor, pn: int) -> torch.Tensor:
     return kmajor_tiles(t.reshape(2 * pn, dn))
 
 
-def inverse_tiles(inv_crt_full: torch.Tensor) -> torch.Tensor:
+def inverse_tiles(inv_crt_full: torch.Tensor,
+                  cols: int = K2_COLS) -> torch.Tensor:
     """inv_crt_full [P, 2N, 2N] (x @ M) -> K2's B operand per prime: for
-    each 32-coefficient tile its 32 lo rows then its 32 hi rows, k-major."""
+    each tile of `cols` coefficients its lo rows then its hi rows, k-major."""
     pcount, two_n, _ = inv_crt_full.shape
     n = two_n // 2
-    t = inv_crt_full.transpose(1, 2).reshape(pcount, 2, n // K2_COLS, K2_COLS,
+    t = inv_crt_full.transpose(1, 2).reshape(pcount, 2, n // cols, cols,
                                              two_n).transpose(1, 2)
     return kmajor_tiles(t.reshape(pcount, two_n, two_n))
 
@@ -87,15 +88,6 @@ def forward_sum_bound(params: ParamSet) -> int:
     n, blog = params.polynomial_size, params.pbs_base_log
     dn, digit = (2 * n, 32) if blog > 8 else (n, 1 << (blog - 1))
     return dn * digit * (128 + 256 * 126)
-
-
-def _prime_args(plan: ntt.NttPlan):
-    """cuda_build.prime_args with each prime's 32-bit Barrett constants
-    (modular.barrett32_consts) after the primes."""
-    primes, mk, fp, n, m = cuda_build.prime_args(plan)
-    consts = [modular.barrett32_consts(p) for p in primes]
-    return (primes, (ctypes.c_uint32 * n)(*[c for c, _ in consts]),
-            (ctypes.c_uint32 * n)(*[off for _, off in consts]), mk, fp, n, m)
 
 
 def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
@@ -137,8 +129,9 @@ def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
     tilde, acc = rotate_setup(plan, params, lwe_ct, test_glwe)
     tilde = tilde.contiguous()
     acc = acc.contiguous().clone()
-    fwd = forward_tiles(fwd_full, pn)
-    inv = inverse_tiles(inv_crt_full)
+    fwd = cuda_build.derived(fwd_full, "forward_tiles",
+                             lambda m: forward_tiles(m, pn))
+    inv = cuda_build.derived(inv_crt_full, "inverse_tiles", inverse_tiles)
     bsk = bsk_limbs.contiguous()
     rot = rot_table.contiguous()
     a_buf = torch.zeros(rows1 * dn, dtype=torch.int8, device=dev)
@@ -149,7 +142,7 @@ def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
                 bsk.data_ptr(), fwd.data_ptr(), inv.data_ptr(),
                 rot.data_ptr(), a_buf.data_ptr(), x_buf.data_ptr(),
                 B, params.lwe_dimension, kp1, n, lev, blog, q,
-                *_prime_args(plan), stream)
+                *cuda_build.prime_args(plan), stream)
     blind_rotate_cuda.launches += 1
     cuda_build.check(rc, "blind-rotate kernel")
     return rotate_finish(acc, q)

@@ -16,6 +16,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import weakref
+
+from . import modular
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -24,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_derived: dict[tuple[str, int], tuple] = {}
 
 
 def _nvcc() -> str:
@@ -65,12 +69,30 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def prime_args(plan):
-    """The per-prime constant arrays of a plan as ctypes host arrays."""
+    """The per-prime constant arrays of a plan as ctypes host arrays: the
+    primes, their 32-bit Barrett constants (modular.barrett32_consts), the
+    CRT constants, the count and M mod 2^q."""
     n = plan.n_primes
+    consts = [modular.barrett32_consts(int(p)) for p in plan.p_i32]
     return ((ctypes.c_int * n)(*[int(p) for p in plan.p_i32]),
+            (ctypes.c_uint32 * n)(*[c for c, _ in consts]),
+            (ctypes.c_uint32 * n)(*[off for _, off in consts]),
             (ctypes.c_uint64 * n)(*[int(v) for v in plan.mk64]),
             (ctypes.c_int64 * n)(*[int(v) for v in plan.fp]),
             n, ctypes.c_uint64(int(plan.m64)))
+
+
+def derived(leaf, what: str, build):
+    """build(leaf), made once per key leaf: the kernels' tile-ordered forms
+    of the constant NTT matrices.  Held as long as the leaf tensor itself
+    lives (a key set's leaves are never written), on the leaf's device, and
+    never stored in the key cache."""
+    key = (what, id(leaf))
+    hit = _derived.get(key)
+    if hit is None or hit[0]() is not leaf:
+        ref = weakref.ref(leaf, lambda _: _derived.pop(key, None))
+        hit = _derived[key] = (ref, build(leaf))
+    return hit[1]
 
 
 def expect(t, name: str, dtype, shape) -> None:

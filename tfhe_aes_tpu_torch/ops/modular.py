@@ -63,6 +63,14 @@ def barrett32_consts(p: int) -> tuple[int, int]:
     return (1 << 32) // p, -(-(1 << 31) // p) * p
 
 
+def host_partial32(x, p: int) -> np.ndarray:
+    """numpy mirror of the kernels' reduce_partial: a representative of
+    x mod p in (-p, 2p) for any int32 x, from the signed high word of x m."""
+    x = np.asarray(x, dtype=np.int64)
+    m, _ = barrett32_consts(p)
+    return x - ((x * m) >> 32) * p
+
+
 def host_barrett32(x, p: int, balanced: bool = False) -> np.ndarray:
     """numpy mirror of the kernels' reduce_canonical (reduce_balanced when
     `balanced`): x mod p for int |x| <= BARRETT32_BOUND, in 32-bit unsigned

@@ -40,8 +40,11 @@ def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
     p = keys.params
     kp1, n = p.glwe_dimension + 1, p.polynomial_size
     ggsw_words = nbits * p.cbs_level * kp1 * kp1 * n
-    vp_words = n_luts * kp1 * n * keys.plan.n_primes
-    per_byte = 160 * ggsw_words + 24 * vp_words        # bytes, generous
+    # A word of the VP accumulators holds 8 bytes in each of three live
+    # copies (the LUT accumulator, the kernel's clone, the result), ~3
+    # bytes of digit limbs and 2 bytes a prime of X: counted twice over.
+    vp_bytes = n_luts * kp1 * n * 2 * (24 + 4 + 2 * keys.plan.n_primes)
+    per_byte = 160 * ggsw_words + vp_bytes             # bytes, generous
     free, _ = torch.cuda.mem_get_info(keys.device)
     return max(1, min(n_bytes, free // 2 // per_byte))
 
