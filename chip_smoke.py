@@ -8,23 +8,26 @@ the script exits non-zero:
   0. environment: the card, the native host runtime, the kernel builds;
   1. the blind-rotate kernel against blind_rotate_plain, word for word, at
      four toy sets (one with 25 GGSW rows) x batches 1, 9, 128, at
-     PARAM_TPU at the batches the paths below give it (16 to 512 bits and
-     the timed AES-round batch, 128 bits per block) and at PARAM_OPT (the
-     CLI's default set, 25 rows) at 128 and 512 bits, each timed beside its
-     bound; then torch._int_mm on one step's product shapes as a yardstick
-     of the int8 product rate;
+     PARAM_TPU at every batch the paths below give it (16 to 1024 bits,
+     and the bench's 64-block AES round, 8192 bits, timed) and at
+     PARAM_OPT (the CLI's default set, 25 rows) at the batches of its
+     4-block CTR, each timed beside its bound; then torch._int_mm on one
+     step's product shapes as a yardstick of the int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
      circuit bootstrap: two cbs_level=1 toy sets (k+1 = 3; k+1 = 5 at a
      batch that fills neither a digit tile's group of 25 accumulators nor
      a 128-row tile); PARAM_TPU at the paths' byte-LUT shapes: AES rounds
-     (L=24) and final rounds (S-box, L=8), the ripple add (L=9) at 2, 4
-     and 32 blocks, the key-expansion round (L=16), decrypt's L=8 and
-     L=32 at 64 and 16 bytes, the SubWord and pk-RCON refreshes at 4 and
-     12 bytes (L=8), each timed beside its bound; then torch._int_mm on
-     one selector bit's product shapes as a yardstick;
+     (L=24) and final rounds (S-box, L=8) at 16 to 1024 bytes (1024, the
+     bench's round, timed), the ripple add (L=9) at 2, 4, 8 and 64 blocks,
+     the key-expansion round (L=16), decrypt's L=8 and L=32 at 64 and 16
+     bytes, the SubWord and pk-RCON refreshes at 4 and 12 bytes (L=8),
+     each timed beside its bound; then torch._int_mm on one selector bit's
+     product shapes as a yardstick (PARAM_OPT's VP shapes are PARAM_TPU's:
+     the two sets differ only in the blind rotate's decomposition);
   3. the main path at PARAM_TPU through Client and Server: host keygen,
-     key expansion, two CTR keystream batches at different offsets, host
-     decryption checked against plaintext AES, the kernels' launch counts;
+     key expansion, two CTR keystream batches (4 and 8 blocks) at
+     different offsets, host decryption checked against plaintext AES,
+     the kernels' launch counts;
   4. device keygen: PARAM_TOY on the card equals the CPU leaf by leaf;
      PARAM_TPU timed beside phase 1's host keygen; its keys saved to the
      key cache in a temporary directory and loaded back to equal leaves;
@@ -33,9 +36,23 @@ the script exits non-zero:
      timed and checked, with the kernels' launch counts; then one more
      aes_decrypt under torch.profiler, each kernel's device time;
   6. the CLI in-process on the cached keys: a 2-block CTR run with
-     --pk-rcon --decrypt --noise-asserts, then the --test harness.
+     --pk-rcon --decrypt --noise-asserts, then the --test harness;
+  7. the bench entry in-process (python -m tfhe_aes_tpu_torch.bench):
+     PARAM_TPU at its default 64 blocks, 1 repeat, --decrypt 4 (device
+     keygen, saved to the key cache); then PARAM_OPT at 4 blocks; each
+     JSON line parsed, every block verified on the host;
+  8. the mesh: (a) the multi-process CTR launcher with one rank a card
+     over NCCL, PARAM_TPU, 8 blocks, keys from phase 7's cache, every
+     block verified by its rank; (b) two ranks on the one card over gloo,
+     dp=1 x mp=2 with the keyswitch keys' contraction rows and each
+     round's bytes split between them, PARAM_TOY, 2 blocks: equal word
+     for word to the one-rank ctr_keystream on the same keys.
 Every launch count is read from zero around one run of a path (phases 3,
-5, 6); the comparisons with the plain versions are not counted.
+5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
+whose ranks count their own and report them); every kernel of a path must
+have been launched, and (b), at cbs_level 2, must launch the rotate and no
+VP.  The comparisons with the plain versions are not counted.  The key cache of
+phases 4-8 lives in a temporary directory, removed at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
 Imports nothing of the JAX package.
@@ -66,6 +83,12 @@ KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
 KERNELS = ("blind_rotate", "vertical_packing")
 CACHE_SEED = 1          # the seed of phase 4's keys and phase 6's CLI runs
+CLI_BLOCKS = 2          # phase 6's CTR run
+BENCH_BLOCKS = 64       # phase 7: the bench's default batch, PARAM_TPU
+BENCH_DECRYPT = 4       # phase 7: its --decrypt blocks
+OPT_BLOCKS = 4          # phase 7: the PARAM_OPT bench batch
+MESH_BLOCKS = 8         # phase 8 (a): the launcher's batch, PARAM_TPU
+TOY_MESH_BLOCKS = 2     # phase 8 (b): the two-rank gloo batch, PARAM_TOY
 
 
 def _timed(fn, *args, **kwargs):
@@ -157,6 +180,8 @@ def _reset_launches(wrappers) -> None:
 
 
 def _read_launches(wrappers, path: str) -> dict:
+    """The launch counts since _reset_launches; raises if a kernel of the
+    path was not launched."""
     counts = {name: fn.launches for name, fn in wrappers.items()}
     if min(counts.values()) < 1:
         raise AssertionError(f"{path}: a kernel was not launched: {counts}")
@@ -320,13 +345,203 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
             "cli (phase 6)": cli_launches}
 
 
+def _run_bench(bench, argv) -> tuple[dict, str]:
+    """bench.main(argv) in this process; echoes its output.  Returns (the
+    JSON record of its last stdout line, its stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(argv)
+    finally:
+        for line in (err.getvalue() + out.getvalue()).splitlines():
+            print(f"phase 7:   {line}")
+    if rc != 0:
+        raise AssertionError(f"bench {' '.join(argv)} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), err.getvalue()
+
+
+def _bench_phase(dev, wrappers) -> dict:
+    """Phase 7: the bench entry at PARAM_TPU (64 blocks, decrypt 4) and
+    PARAM_OPT (4 blocks), keys by device keygen into the key cache.
+    Returns the launch counts of each run, by path."""
+    import torch
+    from tfhe_aes_tpu_torch import bench
+
+    card = {"name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+    runs = (("PARAM_TPU", BENCH_BLOCKS,
+             ["--blocks", str(BENCH_BLOCKS), "--repeats", "1", "--decrypt",
+              str(BENCH_DECRYPT)]),
+            ("PARAM_OPT", OPT_BLOCKS,
+             ["--params", "prod", "--blocks", str(OPT_BLOCKS), "--repeats",
+              "1"]))
+    torch.cuda.empty_cache()
+    paths = {}
+    for name, blocks, argv in runs:
+        _reset_launches(wrappers)
+        t0 = time.perf_counter()
+        rec, err = _run_bench(bench, argv)
+        wall = time.perf_counter() - t0
+        path = f"bench {name} (phase 7)"
+        paths[path] = _read_launches(wrappers, path)
+        if (rec["metric"], rec["params"], rec["blocks"], rec["device"]) != \
+                ("aes128_ctr_blocks_per_min", name, blocks, card):
+            raise AssertionError(f"bench {name}: unexpected record {rec}")
+        if f"# verified {blocks} blocks bit-exact" not in err:
+            raise AssertionError(f"bench {name}: blocks not verified")
+        if "--decrypt" in argv and \
+                f"round-trip verified ({BENCH_DECRYPT} blocks)" not in err:
+            raise AssertionError(f"bench {name}: decrypt not verified")
+        print(f"phase 7: bench {name} {blocks} blocks: {rec['value']} "
+              f"blocks/min ({rec['vs_baseline']}x the reference's 84 "
+              f"s/block), every block verified; whole run {wall:.1f} s; "
+              f"launches {paths[path]}")
+    return paths
+
+
+def _toy_mesh_rank(rank, out_dir, port) -> None:
+    """Phase 8 (b), one of two ranks on the one card over gloo: dp=1 x
+    mp=2, contraction rows and bytes sharded.  Saves its keystream and its
+    kernels' launch counts."""
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp
+    from tfhe_aes_tpu_torch.parallel import mesh
+    from tfhe_aes_tpu_torch.params import PARAM_TOY
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    m = mesh.make_mesh(n_dp=1, n_mp=2, backend="gloo")
+    try:
+        keys = Client(PARAM_TOY, seed=11).make_device_keys(device=m.device)
+        skeys = mesh.shard_keys(m, keys, shard_contractions=True)
+        x = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(out_dir, "in.npz")).items()}
+        fn = mesh.sharded_ctr_fn(m, skeys, TOY_MESH_BLOCKS, shard_bytes=True)
+        wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
+                    "vertical_packing": cuda_vp.vp_rotations_cuda}
+        _reset_launches(wrappers)
+        local, _ = fn(x["rks"], x["iv"], x["lut_lsb"], x["luts_rest"])
+        whole = mesh.gather_blocks(m, local).cpu().numpy()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        np.save(os.path.join(out_dir, f"out{rank}.npy"), whole)
+        with open(os.path.join(out_dir, f"launches{rank}.json"), "w") as f:
+            json.dump(launches, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_phase(dev, wrappers) -> dict:
+    """Phase 8: (a) the launcher over NCCL, a rank a card, PARAM_TPU, keys
+    from phase 7's cache; (b) two gloo ranks on the one card at PARAM_TOY
+    against the one-rank keystream.  Returns the launch counts of (a) and
+    of (b), each summed over its ranks, by path."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as tmp
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.parallel.multihost_ctr import free_port
+    from tfhe_aes_tpu_torch.params import PARAM_TOY
+    from tfhe_aes_tpu_torch.utils import torus
+
+    torch.cuda.empty_cache()
+    procs = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "tfhe_aes_tpu_torch.parallel.multihost_ctr",
+           "--procs", str(procs), "--blocks", str(MESH_BLOCKS), "--params",
+           "tpu", "--seed", "0", "--timeout", "600"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=660,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for line in (r.stderr + r.stdout).splitlines():
+        print(f"phase 8:   {line}")
+    want = f"{MESH_BLOCKS}/{MESH_BLOCKS} blocks verified"
+    if r.returncode != 0 or want not in r.stdout:
+        raise AssertionError(f"launcher failed (rc {r.returncode})")
+    records = [json.loads(ln) for ln in r.stdout.splitlines()
+               if ln.startswith("{")]
+    path_a = "mesh (a) launcher (phase 8)"
+    counts_a = {name: sum(rec["launches"][name] for rec in records)
+                for name in wrappers}
+    if min(counts_a.values()) < 1:
+        raise AssertionError(f"{path_a}: a kernel was not launched: "
+                             f"{counts_a}")
+    slowest = max(rec["seconds"] for rec in records)
+    print(f"phase 8: (a) launcher, {procs} rank(s) over NCCL, PARAM_TPU, "
+          f"{MESH_BLOCKS} blocks: {MESH_BLOCKS / slowest * 60.0:.2f} "
+          f"blocks/min (timed run {slowest} s, the slowest rank), {want}; "
+          f"whole launcher {wall:.1f} s; launches {counts_a}")
+
+    # (b): the same keys and inputs in this process, one rank, as the
+    # reference; the two ranks make their keys from the same seed (and
+    # take rank 0's by broadcast).
+    client = Client(PARAM_TOY, seed=11)
+    keys = client.make_device_keys(device=dev)
+    rks = np.stack([np.stack([client.encrypt_byte(b) for b in rk]) for rk in
+                    aes_plain.key_expansion(aes_plain.u128_to_bytes_be(KEY))])
+    enc_iv = client.encrypt_u128(IV)
+    lut_lsb, luts_rest = fhe_aes.add_scalar_luts(
+        PARAM_TOY, fhe_aes.counter_bytes(TOY_MESH_BLOCKS))
+    ref = torus.to_u64(fhe_aes.ctr_keystream(
+        keys, torus.from_u64(rks, dev), torus.from_u64(enc_iv, dev),
+        TOY_MESH_BLOCKS))
+    client.decrypt_and_verify_ctr(ref, KEY, IV)
+    out_dir = tempfile.mkdtemp(prefix="tfhe_aes_smoke_mesh_")
+    try:
+        np.savez(os.path.join(out_dir, "in.npz"), **{
+            k: np.ascontiguousarray(v, np.uint64).view(np.int64)
+            for k, v in (("rks", rks), ("iv", enc_iv), ("lut_lsb", lut_lsb),
+                         ("luts_rest", luts_rest))})
+        t0 = time.perf_counter()
+        ctx = tmp.start_processes(_toy_mesh_rank, args=(out_dir, free_port()),
+                                  nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 8 (b): the ranks did not end")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        wall = time.perf_counter() - t0
+        counts_b = {name: 0 for name in wrappers}
+        for rank in range(2):
+            got = np.load(os.path.join(out_dir, f"out{rank}.npy"))
+            if not np.array_equal(got.view(np.uint64), ref):
+                raise AssertionError(f"phase 8 (b): rank {rank}'s keystream "
+                                     f"differs from the one-rank one")
+            with open(os.path.join(out_dir, f"launches{rank}.json")) as f:
+                for name, n in json.load(f).items():
+                    counts_b[name] += n
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 8: (b) 2 ranks on one card over gloo, dp=1 x mp=2, "
+          f"contraction rows and bytes sharded, PARAM_TOY, "
+          f"{TOY_MESH_BLOCKS} blocks: both ranks == the one-rank "
+          f"ctr_keystream word for word, decrypts to AES; {wall:.1f} s")
+    # The VP kernel runs only at cbs_level 1: (b)'s path never launches it;
+    # (a) and phase 7 carry it.
+    path_b = "mesh (b) gloo dp=1 x mp=2 (phase 8)"
+    if counts_b["blind_rotate"] < 1 or counts_b["vertical_packing"]:
+        raise AssertionError(f"{path_b}: unexpected launches {counts_b}")
+    print(f"phase 8: (b) launches {counts_b}; vertical_packing is not on "
+          f"this path (PARAM_TOY has cbs_level {PARAM_TOY.cbs_level}, the "
+          f"VP kernel runs at cbs_level 1 only)")
+    return {path_a: counts_a, path_b: counts_b}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=4,
                     help="CTR blocks of the first keystream batch")
-    ap.add_argument("--blocks2", type=int, default=32,
+    ap.add_argument("--blocks2", type=int, default=MESH_BLOCKS,
                     help="CTR blocks of the second, timed batch")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -389,7 +604,7 @@ def main() -> int:
                                   glwe_dimension=4, pbs_level=5)
     for params in (PARAM_TOY, toy_l5, PARAM_TOY_WIDE, toy_r25):
         client = Client(params, seed=11)
-        k = client.make_device_keys(device=dev)
+        k = client.make_device_keys(fast=False, device=dev)
         for n_batch in (1, 9, 128):
             small, test = rotate_inputs(params, n_batch, client.sk.lwe_key)
             got, want, _, _ = rotate_pair(k, params, small, test)
@@ -399,7 +614,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     client = Client(PARAM_TPU, seed=0)
-    keys_host = client.make_device_keys(device="cpu")
+    keys_host = client.make_device_keys(fast=False, device="cpu")
     keygen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     keys = keys_host.to(dev)
@@ -407,18 +622,19 @@ def main() -> int:
     print(f"phase 1: PARAM_TPU host keygen {keygen_s:.1f} s, keys to card "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # The batches (in bits) the paths give the rotate: 16 and 18 the CLI's
-    # 2-block ripple-add steps (8 and 9 bits a block), 32 the 4-byte
-    # SubWord WoPBS and a 4-block first ripple step, 36 a later one, 96
-    # the pk-RCON 12-byte refresh, 128 a 16-byte key-expansion or 1-block
-    # round, 256 and 512 a 2- and 4-block round, 8 and 9 x the timed
-    # batch its ripple add, and the timed AES round last.
-    aes_bits = 128 * args.blocks2
+    # The batches (in bits) the paths give the rotate: for each CTR batch
+    # of b blocks (the CLI's 2, phase 3's, the launcher's 8, the bench's
+    # 64, decrypt's 4) its ripple add's first and later steps (8 b and
+    # 9 b) and its AES rounds (128 b); 32 the 4-byte SubWord, 96 the
+    # pk-RCON 12-byte refresh, 128 a 16-byte key-expansion round.  The
+    # bench's AES round last, timed.
+    path_blocks = sorted({CLI_BLOCKS, args.blocks, args.blocks2,
+                          BENCH_DECRYPT, MESH_BLOCKS, BENCH_BLOCKS})
+    aes_bits = 128 * BENCH_BLOCKS
     br_err = 0.0
     br_shapes = []
-    for n_batch in sorted({16, 18, 32, 36, 96, 128, 256, 512,
-                           8 * args.blocks2, 9 * args.blocks2}
-                          - {aes_bits}) + [aes_bits]:
+    batches = {m * b for b in path_blocks for m in (8, 9, 128)} | {32, 96, 128}
+    for n_batch in sorted(batches - {aes_bits}) + [aes_bits]:
         small, test = rotate_inputs(PARAM_TPU, n_batch, client.sk.lwe_key)
         got, want, br_ms, br_plain_ms = rotate_pair(keys, PARAM_TPU, small,
                                                     test)
@@ -433,14 +649,17 @@ def main() -> int:
               f"ms, bound {br_bound:.2f} ms ({br_bound_by})")
     del got, want, small, test
 
-    # The CLI's default set: 8-bit digits (dn = N), 25 GGSW rows a bit.
+    # The CLI's default set: 8-bit digits (dn = N), 25 GGSW rows a bit; at
+    # the batches of phase 7's 4-block CTR (ripple steps, AES rounds) and
+    # of its key expansion (4-byte SubWord, 16-byte rounds).
     t0 = time.perf_counter()
     cl_opt = Client(PARAM_OPT, seed=0)
     k_opt = cl_opt.make_device_keys(fast=True, device=dev)
     torch.cuda.synchronize()
     print(f"phase 1: PARAM_OPT device keygen "
           f"{time.perf_counter() - t0:.1f} s")
-    for n_batch in (128, 512):
+    for n_batch in sorted({8 * OPT_BLOCKS, 9 * OPT_BLOCKS, 128 * OPT_BLOCKS,
+                           32, 128}):
         small, test = rotate_inputs(PARAM_OPT, n_batch, cl_opt.sk.lwe_key)
         got, want, ms, plain_ms = rotate_pair(k_opt, PARAM_OPT, small, test)
         br_err = max(br_err, _require_equal(
@@ -511,7 +730,7 @@ def main() -> int:
     toy_vp = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP", cbs_level=1,
                                  cbs_base_log=15)
     cl_vp = Client(toy_vp, seed=11)
-    k_vp = cl_vp.make_device_keys().to(dev)
+    k_vp = cl_vp.make_device_keys(fast=False, device=dev)
     vals = [0x5A, 0x01, 0xFF, 0x80]
     # toy N=128 < 2^8: exercise the kernel on the 7 rotation bits of a
     # 7-bit table (the CMux tree for an 8th bit stays plain torch).
@@ -528,7 +747,7 @@ def main() -> int:
     toy_vp4 = dataclasses.replace(toy_vp, name="PARAM_TOY_VP_K4",
                                   glwe_dimension=4)
     cl_vp = Client(toy_vp4, seed=11)
-    k_vp = cl_vp.make_device_keys().to(dev)
+    k_vp = cl_vp.make_device_keys(fast=False, device=dev)
     vals5 = [0x5A, 0x01, 0x7F, 0x00, 0x33]
     out, _, _, _, _ = vp_case(k_vp, cl_vp, toy_vp4, vals5,
                               luts.lut_polys_from_tables(toy_vp4, t7[None], 7),
@@ -547,8 +766,8 @@ def main() -> int:
     decrypt_lut_check(client, out, vals16, lambda bi, v: [
         (int(mul[o // 8][v]) >> (o % 8)) & 1 for o in range(24)], 24)
     # The ripple add's per-block LUTs (L=9): its later steps (9 bits in)
-    # and its first (8 bits), at the paths' batches of 2, 4 and 32 blocks.
-    ripple = sorted({2, args.blocks, args.blocks2})
+    # and its first (8 bits), at every CTR batch of the paths.
+    ripple = path_blocks
     for n_blk in ripple:
         i_bytes = fhe_aes.counter_bytes(n_blk, 0x1FE)
         lsb, rest = fhe_aes.add_scalar_luts(PARAM_TPU, i_bytes)
@@ -569,7 +788,7 @@ def main() -> int:
             s = v + int(i_bytes[bi, 15])
             return [((s % 256) >> o) & 1 for o in range(8)] + [int(s > 255)]
         decrypt_lut_check(client, out, vals8, want8, 9)
-    aes_bytes = 16 * args.blocks2
+    aes_bytes = 16 * BENCH_BLOCKS
     vals_t = [(13 * i + 5) % 256 for i in range(aes_bytes)]
     _, err_t, vp_ms, vp_plain_ms, (vp_bound_ms, vp_bound_by) = vp_case(
         keys, client, PARAM_TPU, vals_t, fwd, 8)
@@ -580,12 +799,14 @@ def main() -> int:
           f"{aes_bytes} B: kernel {vp_ms:.1f} ms, plain {vp_plain_ms:.1f} "
           f"ms, bound {vp_bound_ms:.2f} ms ({vp_bound_by})")
 
-    # The other byte-LUT shapes of the paths: the final rounds' S-box (L=8)
-    # at 512, 64, 32 and 16 bytes; the 4- and 2-block AES rounds (64 and
-    # 32 B, L=24); the trivial key-expansion round (16 B, L=16); decrypt's
-    # InvSubBytes (L=8) and InvMixColumns multiples (L=32) at a 4-block
-    # round's 64 bytes and the CLI's 1-block 16; the SubWord (4 B, S-box)
-    # and the pk-RCON refreshes (12 B and 4 B, identity).
+    # The other byte-LUT shapes of the paths: the AES rounds (L=24) and
+    # the final rounds' S-box (L=8) of the 32-, 8-, 4- and 2-block batches
+    # (512 B also for a 64-block round the memory chunking halves) and the
+    # final round of the 64- and 1-block ones; the
+    # trivial key-expansion round (16 B, L=16); decrypt's InvSubBytes
+    # (L=8) and InvMixColumns multiples (L=32) at a 4-block round's 64
+    # bytes and the CLI's 1-block 16; the SubWord (4 B, S-box) and the
+    # pk-RCON refreshes (12 B and 4 B, identity).
     vp_shapes = [{"shape": f"PARAM_TPU {aes_bytes} B x 8 bits, L=24",
                   "ms": vp_ms, "plain_ms": vp_plain_ms,
                   "bound_ms": vp_bound_ms}]
@@ -600,7 +821,9 @@ def main() -> int:
     refresh = ("L=16 identity + S-box", fhe_aes._refresh_sbox_lut(PARAM_TPU),
                [np.arange(256, dtype=np.uint64), sbox])
     for n_bytes, (label, lut_np, tabs) in (
-            (aes_bytes, fwd_sbox), (64, fwd24), (64, fwd_sbox), (32, fwd24),
+            (aes_bytes, fwd_sbox), (512, fwd24), (512, fwd_sbox),
+            (128, fwd24), (128, fwd_sbox), (64, fwd24), (64, fwd_sbox),
+            (32, fwd24),
             (32, fwd_sbox), (16, fwd_sbox), (16, refresh), (64, inv_mul),
             (64, inv_sbox), (16, inv_mul), (16, inv_sbox), (4, fwd_sbox),
             (12, ident), (4, ident)):
@@ -676,14 +899,16 @@ def main() -> int:
     try:
         paths = {"ctr (phase 3)": launches}
         paths.update(_reference_phases(dev, wrappers, keygen_s))
+        paths.update(_bench_phase(dev, wrappers))
+        paths.update(_mesh_phase(dev, wrappers))
     finally:
         if old_cache is None:
             os.environ.pop("TFHE_AES_TPU_CACHE", None)
         else:
             os.environ["TFHE_AES_TPU_CACHE"] = old_cache
         shutil.rmtree(cache_dir, ignore_errors=True)
-    print(f"phase 6: key cache directory removed; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"phase 8: key cache directory removed; whole script "
+          f"{time.perf_counter() - t_start:.0f} s")
 
     def launch_fields(name):
         by_path = {path: counts[name] for path, counts in paths.items()}

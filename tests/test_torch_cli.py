@@ -35,7 +35,7 @@ def ctx():
     jc = JaxClient(PARAM_TOY, seed=21)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=21)
-    return jc, jd, tc, tc.make_device_keys(device="cpu")
+    return jc, jd, tc, tc.make_device_keys(fast=False, device="cpu")
 
 
 @pytest.fixture(autouse=True)

@@ -45,7 +45,7 @@ def dev():
 
 def _keys(params, seed, dev):
     client = Client(params, seed=seed)
-    return client, client.make_device_keys(device=dev)
+    return client, client.make_device_keys(fast=False, device=dev)
 
 
 def _rotate_inputs(client, n_batch):

@@ -33,7 +33,7 @@ def ctx():
     jc = JaxClient(PARAM_TOY, seed=11)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=11)
-    return jc, jd, tc, tc.make_device_keys(device="cpu")
+    return jc, jd, tc, tc.make_device_keys(fast=False, device="cpu")
 
 
 def test_decrypt_luts_equal_jax():

@@ -28,7 +28,7 @@ def ctx():
     jc = JaxClient(PARAM_TOY, seed=11)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=11)
-    td = tc.make_device_keys(device="cpu")
+    td = tc.make_device_keys(fast=False, device="cpu")
     return jc, jd, jc.make_public_key(), tc, td, tc.make_public_key()
 
 

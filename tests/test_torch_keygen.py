@@ -33,7 +33,22 @@ def fast_keys():
 @pytest.fixture(scope="module")
 def host_keys():
     tc = Client(PARAM_TOY, seed=7)
-    return tc.sk, tc.make_device_keys(device="cpu")
+    return tc.sk, tc.make_device_keys(fast=False, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def default_keys():
+    """(JAX keys, torch keys), each package's make_device_keys() with its
+    defaults (the torch one on the CPU), from one seed."""
+    return (JaxClient(PARAM_TOY, seed=11).make_device_keys(),
+            Client(PARAM_TOY, seed=11).make_device_keys(device="cpu"))
+
+
+@pytest.mark.parametrize("name", KEY_LEAVES)
+def test_default_keygen_equals_jax_default(default_keys, name):
+    jd, td = default_keys
+    np.testing.assert_array_equal(getattr(td, name).numpy(),
+                                  np.asarray(getattr(jd, name)))
 
 
 def _leaves_equal(got, want):

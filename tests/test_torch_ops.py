@@ -229,7 +229,7 @@ def toy_keys():
     jc = JaxClient(PARAM_TOY, seed=11)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=11)
-    return jc, jd, tc, tc.make_device_keys(device="cpu")
+    return jc, jd, tc, tc.make_device_keys(fast=False, device="cpu")
 
 
 def test_make_device_keys_equal_jax(toy_keys):

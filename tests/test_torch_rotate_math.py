@@ -208,7 +208,7 @@ def test_kernel_emulation_equals_plain(params):
     steps = 6
     cut = dataclasses.replace(params, lwe_dimension=steps)
     client = Client(params, seed=11)
-    k = client.make_device_keys(device="cpu")
+    k = client.make_device_keys(fast=False, device="cpu")
     rng = np.random.default_rng(5)
     bits = rng.integers(0, 2, 9).astype(np.uint64)
     small = nb.lwe_encrypt(client.sk.lwe_key, bits << np.uint64(63),

@@ -37,7 +37,7 @@ def ctx():
     jc = JaxClient(PARAM_TOY, seed=11)
     jd = jc.make_device_keys(fast=False)
     tc = Client(PARAM_TOY, seed=11)
-    return jc, jd, tc, tc.make_device_keys(device="cpu")
+    return jc, jd, tc, tc.make_device_keys(fast=False, device="cpu")
 
 
 def test_lut_builders_equal_jax():
@@ -118,7 +118,7 @@ from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.ops import wopbs
 from tfhe_aes_tpu_torch.utils import torus
 c = Client(PARAM_TOY, seed=3)
-k = c.make_device_keys(device="cpu")
+k = c.make_device_keys(fast=False, device="cpu")
 vals = [7, 200]
 cts = torus.from_u64(np.stack([c.encrypt_byte(v) for v in vals]))
 lut = torus.from_u64(luts.lut_polys_from_tables(PARAM_TOY,

@@ -29,7 +29,8 @@ PARAM_TOY_VP = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP",
 
 @pytest.fixture(scope="module")
 def toy_keys():
-    return Client(PARAM_TOY_VP, seed=11).make_device_keys(device="cpu")
+    return Client(PARAM_TOY_VP, seed=11).make_device_keys(fast=False,
+                                                          device="cpu")
 
 
 def test_blind_rotate_wrapper_refuses_cpu_tensors(toy_keys):

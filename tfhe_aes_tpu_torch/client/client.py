@@ -50,15 +50,16 @@ class Client:
         self.rng = csprng.default_rng(seed)
         self.sk = nb.gen_secret_keys(params, self.rng)
 
-    def make_device_keys(self, fast: bool = False,
+    def make_device_keys(self, fast: bool = True,
                          device=None) -> keys_mod.DeviceKeys:
         """Evaluation keys in device layout, on `device` (default: the
         card; raises without one unless device="cpu").
 
-        fast=True: device keygen (client/keygen_fast), the GLWE mask
-        products and the BSK staging on `device`; the draws of the JAX
-        package's fast path.  fast=False: host keygen, the draws of its
-        fast=False path.  The JAX package defaults to fast=True.
+        fast=True (the default, as in the JAX package): device keygen
+        (client/keygen_fast), the GLWE mask products and the BSK staging on
+        `device`, with the draws of the JAX package's default path, so one
+        seed gives the same keys in both.  fast=False: host keygen, the
+        draws of its fast=False path.
         """
         device = device_mod.resolve(device)
         if fast:

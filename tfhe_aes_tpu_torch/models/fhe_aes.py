@@ -9,10 +9,12 @@ into the S-box LUTs.  Rounds and ripple-carry steps are Python loops.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import aes_plain, luts, tables
 from ..ops import wopbs
@@ -102,12 +104,27 @@ def inv_shift_rows(state):
     return state[:, list(INV_SHIFT)]
 
 
-def _byte_wopbs(keys: DeviceKeys, state, lut):
-    """Apply a LUT stack to every byte: [B,16,8,big+1] -> [B,16,L,big+1]."""
-    B = state.shape[0]
-    out = wopbs.many_wopbs(keys, state.reshape((B * 16,) + state.shape[2:]),
+def _byte_wopbs(keys: DeviceKeys, state, lut, byte_group=None):
+    """Apply a LUT stack to every byte: [B,16,8,big+1] -> [B,16,L,big+1].
+
+    byte_group: a process group over whose ranks the byte axis is split:
+    each rank runs the WoPBS of its contiguous 16/n bytes, and the outputs
+    are all-gathered back into the whole byte axis.
+    """
+    if byte_group is not None:
+        n, r = dist.get_world_size(byte_group), dist.get_rank(byte_group)
+        w = state.shape[1] // n
+        if keys.shard is not None:      # the ranks' batches now differ
+            keys = dataclasses.replace(
+                keys, shard=dataclasses.replace(keys.shard, split_batch=True))
+        mine = _byte_wopbs(keys, state[:, r * w:(r + 1) * w], lut)
+        parts = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(parts, mine.contiguous(), group=byte_group)
+        return torch.cat(parts, dim=1)
+    B, nb = state.shape[:2]
+    out = wopbs.many_wopbs(keys, state.reshape((B * nb,) + state.shape[2:]),
                            lut)
-    return out.reshape((B, 16) + out.shape[1:])
+    return out.reshape((B, nb) + out.shape[1:])
 
 
 def _mix(mul_state, var_table):
@@ -119,17 +136,20 @@ def _mix(mul_state, var_table):
     return gathered.sum(dim=2)
 
 
-def aes_encrypt(keys: DeviceKeys, round_keys, state):
+def aes_encrypt(keys: DeviceKeys, round_keys, state, *, byte_group=None):
     """Batched AES-128 encryption.  round_keys [11, 16, 8, big+1]; state
-    [B, 16, 8, big+1]."""
+    [B, 16, 8, big+1].  byte_group: split each round's WoPBS over the byte
+    axis (see _byte_wopbs); every rank of the group gets the whole state
+    back before ShiftRows and MixColumns."""
     p = keys.params
     fwd_l = _on(_fwd_luts(p), state)
     state = add_round_key(state, round_keys[0])
     for rnd in range(1, 10):
-        mul = _byte_wopbs(keys, state, fwd_l)            # [B,16,24,big+1]
+        mul = _byte_wopbs(keys, state, fwd_l, byte_group)  # [B,16,24,big+1]
         mul = mul.reshape(mul.shape[:2] + (3, 8) + mul.shape[3:])
         state = add_round_key(_mix(shift_rows(mul), _MC_VAR), round_keys[rnd])
-    out = _byte_wopbs(keys, state, _on(_sbox_lut(p, False), state))
+    out = _byte_wopbs(keys, state, _on(_sbox_lut(p, False), state),
+                      byte_group)
     return add_round_key(shift_rows(out), round_keys[10])
 
 

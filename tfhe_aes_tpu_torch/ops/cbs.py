@@ -36,7 +36,9 @@ def pfpksk_apply_all(keys: DeviceKeys, big_lwe: torch.Tensor) -> torch.Tensor:
     """Apply all k+1 packing keyswitches: [B, big+1] -> [B, k+1_u, k+1_j, N].
 
     12-bit digits split into two int8 limbs; two int8 products against the
-    pre-limbed key, recombined mod 2^64.
+    pre-limbed key, recombined mod 2^64.  On keys with a contraction shard
+    the key holds only this rank's rows, and each int32 product is summed
+    over the shard's group before recombination.
     """
     p = keys.params
     kp1, n = p.glwe_dimension + 1, p.polynomial_size
@@ -48,8 +50,12 @@ def pfpksk_apply_all(keys: DeviceKeys, big_lwe: torch.Tensor) -> torch.Tensor:
     hi = hi.to(torch.int8)
     out_cols = kp1 * kp1 * n
     out = None
+    shard = keys.shard
     for i, dl in enumerate((lo, hi)):
-        m = int8_dot(dl, keys.pfpksk_limbs)
+        if shard is None:
+            m = int8_dot(dl, keys.pfpksk_limbs)
+        else:
+            m = shard.int8_dot(dl, keys.pfpksk_limbs, shard.pfpksk_rows)
         m = m.reshape(m.shape[:-1] + (out_cols, 8)).to(torch.int64)
         for l in range(8):
             if 8 * l + 8 * i >= 64:

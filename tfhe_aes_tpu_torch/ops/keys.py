@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import runtime
 from ..backend import numpy_backend as nb
@@ -25,12 +26,54 @@ KEY_LEAVES = ("bsk_limbs", "ksk_limbs", "pfpksk_limbs", "fwd_limbs",
               "inv_crt_full", "rot_table", "vp_fwd3", "vp_inv_full")
 
 
+@dataclasses.dataclass(frozen=True)
+class ContractionShard:
+    """This rank's share of the keyswitch keys' contraction rows, made by
+    parallel.mesh.shard_keys: the keys hold only rows `ksk_rows` of
+    ksk_limbs and `pfpksk_rows` of pfpksk_limbs, and every int8 product
+    against them is summed over `group`.
+
+    split_batch: each rank of `group` holds a batch of its own (of one
+    size on every rank) rather than the same batch.
+    """
+    group: object
+    ksk_rows: slice
+    pfpksk_rows: slice
+    split_batch: bool = False
+
+    def agree_min(self, n: int, device: torch.device) -> int:
+        """The least of every rank's n over the group: a size that the
+        group's ranks must all use, whatever each one chose alone."""
+        t = torch.tensor([n], dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return int(t.item())
+
+    def int8_dot(self, digits: torch.Tensor, key_limbs: torch.Tensor,
+                 rows: slice) -> torch.Tensor:
+        """[M, T] int8 digits against this rank's key rows `rows` of the
+        T, summed over the group: the whole product [M, C] int32 (exact:
+        every partial sum is a sum of the whole product's terms, which
+        fits int32)."""
+        if self.split_batch:
+            n = dist.get_world_size(self.group)
+            parts = [torch.empty_like(digits) for _ in range(n)]
+            dist.all_gather(parts, digits.contiguous(), group=self.group)
+            digits = torch.cat(parts)
+        m = ntt.int8_dot(digits[:, rows], key_limbs)
+        dist.all_reduce(m, group=self.group)
+        if self.split_batch:
+            m = m.chunk(n)[dist.get_rank(self.group)]
+        return m
+
+
 @dataclasses.dataclass
 class DeviceKeys:
     """Evaluation keys as torch tensors plus host metadata.
 
     `plan` is the mod-2^64 torus-domain NTT plan (CBS staging, vertical
     packing); `rplan` the mod-2^q' rotate-domain plan (blind rotate).
+    `shard` is set only on keys whose contraction rows are split over a
+    mesh (parallel.mesh.shard_keys); it is not a key leaf.
     """
     params: ParamSet
     plan: ntt.NttPlan
@@ -47,6 +90,7 @@ class DeviceKeys:
     rot_table: torch.Tensor       # int16 [2N, Pr*N]
     vp_fwd3: torch.Tensor         # int8  [3N, 2*P*N]
     vp_inv_full: torch.Tensor     # int8  [P, 2N, 2N]
+    shard: ContractionShard | None = None
 
     @property
     def device(self) -> torch.device:

@@ -19,7 +19,8 @@ from .keys import DeviceKeys
 def extract_bits(keys: DeviceKeys, byte_bits_big: torch.Tensor) -> torch.Tensor:
     """[..., nbits, big+1] -> [..., nbits, n+1] small-LWE bits (one
     keyswitch per bit with 1-bit radix blocks)."""
-    return keyswitch.keyswitch(keys.params, keys.ksk_limbs, byte_bits_big)
+    return keyswitch.keyswitch(keys.params, keys.ksk_limbs, byte_bits_big,
+                               keys.shard)
 
 
 def _stage_and_pack(keys: DeviceKeys, bigs: torch.Tensor, nbytes: int,
@@ -57,7 +58,9 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     byte_bits_big: [B, nbits, big+1] u64 words, LSB first.
     lut_polys:     [B or 1, L, C, N] u64 words.
     Returns [B, L, big+1] fresh big-LWEs of each output bit.
-    vp_chunk: bytes per tail chunk (default: chunk_bytes).
+    vp_chunk: bytes per tail chunk (default: chunk_bytes).  On keys with
+    a contraction shard every chunk's products are summed over the
+    shard's group, so its ranks take the least of their chunks.
     When utils/noise_asserts is armed, the input and the output are
     checked against the noise model.
     """
@@ -69,6 +72,8 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     lev, np1 = bigs.shape[0], bigs.shape[-1]
     bigs = bigs.reshape(lev, B, nbits, np1)
     bc = vp_chunk or chunk_bytes(keys, B, lut_polys.shape[1], nbits)
+    if keys.shard is not None:
+        bc = keys.shard.agree_min(bc, byte_bits_big.device)
     outs = []
     for lo in range(0, B, bc):
         hi = min(B, lo + bc)

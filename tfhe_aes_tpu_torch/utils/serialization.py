@@ -45,8 +45,14 @@ def save_keys(path, sk: SecretKeys, dkeys: keys_mod.DeviceKeys, *,
 
     Default: the BSK in its device layout (int8 limb planes), so a load
     does no math.  ``interchange=True``: the BSK as int16 NTT residues
-    [n, P, R, k+1, N], independent of the device layout.
+    [n, P, R, k+1, N], independent of the device layout.  Keys sharded
+    over a mesh (`dkeys.shard` set) hold only a slice of their keyswitch
+    keys and are refused.
     """
+    if dkeys.shard is not None:
+        raise ValueError("these keys hold one rank's rows of the keyswitch "
+                         "keys (parallel.mesh.shard_keys); save the keys "
+                         "they were sharded from")
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     if interchange:
