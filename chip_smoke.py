@@ -46,13 +46,22 @@ the script exits non-zero:
      block verified by its rank; (b) two ranks on the one card over gloo,
      dp=1 x mp=2 with the keyswitch keys' contraction rows and each
      round's bytes split between them, PARAM_TOY, 2 blocks: equal word
-     for word to the one-rank ctr_keystream on the same keys.
+     for word to the one-rank ctr_keystream on the same keys;
+  9. the measured noise study (python -m tfhe_aes_tpu_torch.noise_study)
+     at PARAM_TPU and PARAM_OPT on phase 7's seed-0 caches: 4096 boolean
+     PBS and a 512-byte identity-LUT WoPBS each, every sigma printed
+     beside the TPU's, any failed budget check fails the run, the reports
+     in the temporary directory; then each set's 4096-bit rotate batch
+     through the kernel again, timed beside its bound, its first 16 rows
+     against the plain version and its extracted phases against the
+     study's errors.
 Every launch count is read from zero around one run of a path (phases 3,
 5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
-whose ranks count their own and report them); every kernel of a path must
-have been launched, and (b), at cbs_level 2, must launch the rotate and no
-VP.  The comparisons with the plain versions are not counted.  The key cache of
-phases 4-8 lives in a temporary directory, removed at the end.
+whose ranks count their own and report them; each of phase 9's two study
+runs, summed); every kernel of a path must have been launched, and (b),
+at cbs_level 2, must launch the rotate and no VP.  The comparisons with
+the plain versions are not counted.  The key cache of phases 4-9 lives in
+a temporary directory, removed at the end.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
 Imports nothing of the JAX package.
@@ -89,6 +98,12 @@ BENCH_DECRYPT = 4       # phase 7: its --decrypt blocks
 OPT_BLOCKS = 4          # phase 7: the PARAM_OPT bench batch
 MESH_BLOCKS = 8         # phase 8 (a): the launcher's batch, PARAM_TPU
 TOY_MESH_BLOCKS = 2     # phase 8 (b): the two-rank gloo batch, PARAM_TOY
+NOISE_PBS = 4096        # phase 9: boolean PBS bits of a set's study
+NOISE_WOPBS_BYTES = 512  # phase 9: identity-LUT WoPBS bytes of a set's study
+NOISE_PLAIN_ROWS = 16   # phase 9: rotate rows held against the plain version
+# The TPU's measured sigmas, log2, boolean PBS and WoPBS output
+# (NOISE_REPORT_TPU.md, NOISE_REPORT.md): printed beside the card's.
+TPU_SIGMAS = {"PARAM_TPU": (36.06, 55.63), "PARAM_OPT": (32.09, 53.25)}
 
 
 def _timed(fn, *args, **kwargs):
@@ -534,6 +549,107 @@ def _mesh_phase(dev, wrappers) -> dict:
     return {path_a: counts_a, path_b: counts_b}
 
 
+def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
+    """Phase 9: the measured noise study (python -m
+    tfhe_aes_tpu_torch.noise_study) at PARAM_TPU and PARAM_OPT on phase
+    7's seed-0 caches, without classic samples, its reports in the cache
+    directory.  Then, outside the count, each set's rotate batch again
+    through the kernel, its first rows against the plain version.  Returns
+    (the launch counts of the study runs by path, the rotate shapes, the
+    largest rotate error)."""
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch import noise_study
+    from tfhe_aes_tpu_torch.backend import numpy_backend as nb
+    from tfhe_aes_tpu_torch.ops import blind_rotate, cuda_blind_rotate, lwe
+    from tfhe_aes_tpu_torch.params import PARAM_OPT, PARAM_TPU
+    from tfhe_aes_tpu_torch.utils import noise_model, serialization, torus
+
+    torch.cuda.empty_cache()
+    path = "noise study (phase 9)"
+    counts = {name: 0 for name in wrappers}
+    shapes, err_max = [], 0.0
+    for p in (PARAM_TPU, PARAM_OPT):
+        report = os.path.join(serialization.default_cache_dir(),
+                              f"NOISE_REPORT_H100_{p.name}.md")
+        buf = io.StringIO()
+        _reset_launches(wrappers)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                study = noise_study.run(p, n_pbs=NOISE_PBS,
+                                        n_wopbs_bytes=NOISE_WOPBS_BYTES,
+                                        n_classic=0, device=dev, out=report)
+        finally:
+            for line in buf.getvalue().splitlines():
+                print(f"phase 9:   {line}")
+        wall = time.perf_counter() - t0
+        for name, fn in wrappers.items():
+            counts[name] += fn.launches
+        if "loaded cached keys" not in buf.getvalue():
+            raise AssertionError(f"phase 9 {p.name}: keys not from the cache")
+        tpu = TPU_SIGMAS[p.name]
+        models = (noise_model.budget(p).sigma_pbs,
+                  noise_model.budget(p, vp_steps=8).sigma_wopbs)
+        for label, err, was, model in (
+                ("boolean PBS", study.pbs, tpu[0], models[0]),
+                ("WoPBS output", study.wopbs, tpu[1], models[1])):
+            s = noise_study.Stage.of(err)
+            print(f"phase 9: {p.name} {label} x{s.samples}: sigma "
+                  f"2^{s.sigma:.2f} (TPU 2^{was:.2f}), max 2^{s.max_err:.2f},"
+                  f" margin {noise_study.BUDGET_FRESH - s.sigma:.2f} under the "
+                  f"fresh budget 2^{noise_study.BUDGET_FRESH:.2f}; model "
+                  f"2^{model:.2f}")
+        if not study.ok:
+            raise AssertionError(f"phase 9 {p.name}: the noise budget check "
+                                 f"failed")
+        print(f"phase 9: {p.name} study {wall:.1f} s, budget check PASS, "
+              f"report {os.path.basename(report)} written")
+
+        # The same rotate batch the study's pbs_boolean ran, as it builds it.
+        sk, keys = serialization.load_keys(serialization.cache_path(p, 0))
+        keys = keys.to(dev)
+        bits, small = noise_study.pbs_inputs(
+            p, sk, NOISE_PBS, np.random.default_rng(noise_study.RNG_SEED))
+        ct = torus.from_u64(small, dev)
+        ct[:, -1] += 1 << 62
+        test = torch.zeros((p.glwe_dimension + 1, p.polynomial_size),
+                           dtype=torch.int64, device=dev)
+        test[-1, :] = -(1 << 61)
+        acc, ms = _timed(cuda_blind_rotate.blind_rotate_cuda, keys.rplan, p,
+                         keys.bsk_limbs, ct, test, keys.fwd_full,
+                         keys.inv_crt_full, keys.rot_table)
+        want, plain_ms = _timed(blind_rotate.blind_rotate_plain, keys.rplan, p,
+                                keys.bsk_limbs, ct[:NOISE_PLAIN_ROWS], test,
+                                keys.rfwd_limbs, keys.rinv_crt_limbs,
+                                keys.rot_table)
+        err_max = max(err_max, _require_equal(
+            acc[:NOISE_PLAIN_ROWS], want,
+            f"blind rotate {p.name} B={NOISE_PBS}, first {NOISE_PLAIN_ROWS} "
+            f"rows"))
+        out = lwe.sample_extract0(acc)
+        out[:, -1] += 1 << 61
+        if not np.array_equal(noise_study.signed_err(
+                nb.lwe_phase(sk.big_lwe_key, torus.to_u64(out)),
+                bits << np.uint64(62)), study.pbs):
+            raise AssertionError(f"phase 9 {p.name}: the rotate batch is not "
+                                 f"the study's")
+        bound, bound_by = rotate_bound(p, keys.rplan, NOISE_PBS)
+        shapes.append({"shape": f"{p.name} {NOISE_PBS} bits", "ms": ms,
+                       "plain_ms": plain_ms, "plain_rows": NOISE_PLAIN_ROWS,
+                       "bound_ms": bound})
+        print(f"phase 9: blind rotate {p.name} kernel == plain on the first "
+              f"{NOISE_PLAIN_ROWS} of {NOISE_PBS} rows, and its batch gives "
+              f"the study's errors; kernel {ms:.1f} ms, plain "
+              f"{plain_ms:.1f} ms ({NOISE_PLAIN_ROWS} rows), bound "
+              f"{bound:.2f} ms ({bound_by})")
+        del keys, acc, want, ct, out
+    print(f"phase 9: launches {counts} (predicted 4 rotate, 2 VP)")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"{path}: a kernel was not launched: {counts}")
+    return {path: counts}, shapes, err_max
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=4,
@@ -901,13 +1017,17 @@ def main() -> int:
         paths.update(_reference_phases(dev, wrappers, keygen_s))
         paths.update(_bench_phase(dev, wrappers))
         paths.update(_mesh_phase(dev, wrappers))
+        noise_paths, noise_shapes, noise_err = _noise_phase(dev, wrappers)
+        paths.update(noise_paths)
+        br_shapes += noise_shapes
+        br_err = max(br_err, noise_err)
     finally:
         if old_cache is None:
             os.environ.pop("TFHE_AES_TPU_CACHE", None)
         else:
             os.environ["TFHE_AES_TPU_CACHE"] = old_cache
         shutil.rmtree(cache_dir, ignore_errors=True)
-    print(f"phase 8: key cache directory removed; whole script "
+    print(f"phase 9: key cache directory removed; whole script "
           f"{time.perf_counter() - t_start:.0f} s")
 
     def launch_fields(name):

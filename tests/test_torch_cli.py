@@ -1,6 +1,7 @@
 """The torch port's live noise sanitizer against the JAX package's, and its
 command-line entry point (CPU, PARAM_TOY)."""
 
+import argparse
 import os
 import pathlib
 import subprocess
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from tfhe_aes_tpu import cli as jcli
 from tfhe_aes_tpu.client.client import Client as JaxClient
 from tfhe_aes_tpu.models import aes_plain, luts, tables
 from tfhe_aes_tpu.ops import wopbs as jwopbs
@@ -139,6 +141,38 @@ def test_cli_module_exits_nonzero_without_a_card():
 def test_cli_needs_its_inputs():
     with pytest.raises(SystemExit):
         cli.main(["--params", "toy", "--device", "cpu"])
+
+
+def test_cli_accepts_the_reference_host_verify_flag(monkeypatch):
+    """A JAX command line with --host-verify parses in the port to the
+    reference's fields, and the port's main returns 0 on it."""
+    argv = ["--params", "tpu", "--host-verify", "--number-of-outputs", "2",
+            "--iv", hex(IV), "--key", hex(KEY), "--seed", "3"]
+    port = vars(cli._parser().parse_args(argv))
+
+    class Parsed(Exception):
+        pass
+    parse = argparse.ArgumentParser.parse_args
+    seen = {}
+
+    def capture(self, args=None, namespace=None):
+        seen.update(vars(parse(self, args, namespace)))
+        raise Parsed
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(Parsed):
+            jcli.main(argv)
+    shared = port.keys() & seen.keys()
+    assert {"host_verify", "params", "number_of_outputs", "iv", "key",
+            "seed", "no_verify", "decrypt", "pk_rcon"} <= shared
+    assert {k: port[k] for k in shared} == {k: seen[k] for k in shared}
+    assert port["host_verify"] is True
+
+    ran = []
+    monkeypatch.setattr(cli, "client_and_keys", lambda *a: (None, None))
+    monkeypatch.setattr(cli, "_run", lambda args, *a: ran.append(args))
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert ran and ran[0].host_verify
 
 
 def test_harness_nist_vectors_equal_aes_plain():

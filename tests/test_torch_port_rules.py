@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_aes_tpu_torch import cli
+from tfhe_aes_tpu_torch import cli, noise_study
 from tfhe_aes_tpu_torch.client import keygen_fast
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.ops import cuda_build
@@ -19,7 +19,8 @@ from tfhe_aes_tpu_torch.utils import device
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tfhe_aes_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+    REPO / "scripts" / "vp_card_check.py", REPO / "scripts" / "vp_stage_cut.py"]
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -40,7 +41,8 @@ def test_port_file_imports_no_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["client", "keygen_fast", "test_harness"])
+@pytest.mark.parametrize("entry", ["client", "keygen_fast", "test_harness",
+                                   "noise_study"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device given, each entry point wants the card and raises
     when there is none."""
@@ -52,6 +54,7 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
             client.sk, client.rng),
         "test_harness": lambda: cli.run_test_harness(PARAM_TOY, 0, seed=1,
                                                      use_cache=False),
+        "noise_study": lambda: noise_study.main(["--params", "toy"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

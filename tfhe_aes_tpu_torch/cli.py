@@ -137,6 +137,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="client RNG seed (default: OS entropy); also "
                          "keys the key cache")
     ap.add_argument("--no-verify", action="store_true")
+    ap.add_argument("--host-verify", action="store_true",
+                    help="(default since round 5) decrypt + verify on the "
+                         "client: ciphertexts are pulled to host in small "
+                         "chunks and the secret key never touches the "
+                         "accelerator")
     ap.add_argument("--decrypt", action="store_true",
                     help="also run the homomorphic decryption round-trip")
     ap.add_argument("--no-cache", action="store_true",
