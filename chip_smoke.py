@@ -39,8 +39,9 @@ the script exits non-zero:
      --pk-rcon --decrypt --noise-asserts, then the --test harness;
   7. the bench entry in-process (python -m tfhe_aes_tpu_torch.bench):
      PARAM_TPU at its default 64 blocks, 1 repeat, --decrypt 4 (device
-     keygen, saved to the key cache); then PARAM_OPT at 4 blocks; each
-     JSON line parsed, every block verified on the host;
+     keygen, saved to the key cache), every block verified on the host;
+     then PARAM_OPT at 4 blocks with --device-verify, verified on the
+     card; each JSON line parsed;
   8. the mesh: (a) the multi-process CTR launcher with one rank a card
      over NCCL, PARAM_TPU, 8 blocks, keys from phase 7's cache, every
      block verified by its rank; (b) two ranks on the one card over gloo,
@@ -54,14 +55,22 @@ the script exits non-zero:
      in the temporary directory; then each set's 4096-bit rotate batch
      through the kernel again, timed beside its bound, its first 16 rows
      against the plain version and its extracted phases against the
-     study's errors.
+     study's errors;
+ 10. cold start: the package copied into a temporary directory without its
+     _build/, an empty key cache, and python -m tfhe_aes_tpu_torch.cli
+     --params tpu --seed 0 --number-of-outputs 2 --device-verify run in a
+     subprocess twice: cold (both nvcc builds in the warm-up, device
+     keygen, the cache save) and warm (the built libraries, the saved
+     keys); for each, the seconds to the first verified block, the
+     warm-up's report, keygen or key load and the first key expansion.
 Every launch count is read from zero around one run of a path (phases 3,
 5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
 whose ranks count their own and report them; each of phase 9's two study
-runs, summed); every kernel of a path must have been launched, and (b),
+runs, summed; phase 10's two CLI processes, each counting its own and
+summed); every kernel of a path must have been launched, and (b),
 at cbs_level 2, must launch the rotate and no VP.  The comparisons with
 the plain versions are not counted.  The key cache of phases 4-9 lives in
-a temporary directory, removed at the end.
+a temporary directory, removed at the end; phase 10's in one of its own.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
 Imports nothing of the JAX package.
@@ -101,6 +110,7 @@ TOY_MESH_BLOCKS = 2     # phase 8 (b): the two-rank gloo batch, PARAM_TOY
 NOISE_PBS = 4096        # phase 9: boolean PBS bits of a set's study
 NOISE_WOPBS_BYTES = 512  # phase 9: identity-LUT WoPBS bytes of a set's study
 NOISE_PLAIN_ROWS = 16   # phase 9: rotate rows held against the plain version
+COLD_BLOCKS = 2         # phase 10: the CLI's CTR blocks, cold and warm
 # The TPU's measured sigmas, log2, boolean PBS and WoPBS output
 # (NOISE_REPORT_TPU.md, NOISE_REPORT.md): printed beside the card's.
 TPU_SIGMAS = {"PARAM_TPU": (36.06, 55.63), "PARAM_OPT": (32.09, 53.25)}
@@ -389,7 +399,7 @@ def _bench_phase(dev, wrappers) -> dict:
               str(BENCH_DECRYPT)]),
             ("PARAM_OPT", OPT_BLOCKS,
              ["--params", "prod", "--blocks", str(OPT_BLOCKS), "--repeats",
-              "1"]))
+              "1", "--device-verify"]))
     torch.cuda.empty_cache()
     paths = {}
     for name, blocks, argv in runs:
@@ -402,7 +412,9 @@ def _bench_phase(dev, wrappers) -> dict:
         if (rec["metric"], rec["params"], rec["blocks"], rec["device"]) != \
                 ("aes128_ctr_blocks_per_min", name, blocks, card):
             raise AssertionError(f"bench {name}: unexpected record {rec}")
-        if f"# verified {blocks} blocks bit-exact" not in err:
+        where = "device" if "--device-verify" in argv else "host"
+        if f"# verified {blocks} blocks bit-exact vs plaintext AES " \
+                f"({where} decrypt" not in err:
             raise AssertionError(f"bench {name}: blocks not verified")
         if "--decrypt" in argv and \
                 f"round-trip verified ({BENCH_DECRYPT} blocks)" not in err:
@@ -648,6 +660,99 @@ def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
     if min(counts.values()) < 1:
         raise AssertionError(f"{path}: a kernel was not launched: {counts}")
     return {path: counts}, shapes, err_max
+
+
+# Phase 10's child: runs the CLI as `python -m` does, then reports its
+# kernels' launch counts on stderr.
+COLD_RUNNER = """
+import atexit, json, runpy, sys
+from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp
+atexit.register(lambda: print("LAUNCHES " + json.dumps({
+    "blind_rotate": cuda_blind_rotate.blind_rotate_cuda.launches,
+    "vertical_packing": cuda_vp.vp_rotations_cuda.launches}),
+    file=sys.stderr, flush=True))
+sys.argv = ["tfhe_aes_tpu_torch.cli"] + sys.argv[1:]
+runpy.run_module("tfhe_aes_tpu_torch.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _cold_start_phase(wrappers) -> dict:
+    """Phase 10: the CLI in a subprocess on a copy of the package without
+    its built libraries and on an empty key cache, cold then warm.
+    Returns the launch counts of the two runs, summed, by path."""
+    import ast
+    import re
+
+    import torch
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="tfhe_aes_smoke_cold_")
+    path = "cold start (phase 10)"
+    counts = {name: 0 for name in wrappers}
+    try:
+        shutil.copytree(os.path.join(here, "tfhe_aes_tpu_torch"),
+                        os.path.join(work, "tfhe_aes_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        env = dict(os.environ, PYTHONPATH=work, PYTHONUNBUFFERED="1",
+                   TFHE_AES_TPU_CACHE=os.path.join(work, "cache"))
+        argv = ["--params", "tpu", "--seed", "0", "--number-of-outputs",
+                str(COLD_BLOCKS), "--iv", hex(IV), "--key", hex(KEY),
+                "--device-verify"]
+        for kind in ("cold", "warm"):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-c", COLD_RUNNER, *argv],
+                                    cwd=work, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+            lines, first = [], None
+            try:
+                for line in proc.stdout:
+                    if first is None and line.startswith("[client] verified"):
+                        first = time.perf_counter() - t0
+                    lines.append(line)
+                    print(f"phase 10:   {line.rstrip()}")
+                proc.wait(timeout=60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            out = "".join(lines)
+            want = f"[client] verified {COLD_BLOCKS} blocks bit-exact"
+            if proc.returncode != 0 or want not in out or first is None:
+                raise AssertionError(f"phase 10 {kind}: the CLI failed (rc "
+                                     f"{proc.returncode})")
+            keys = re.search(r"\[client\] (device keygen \+ packing took|"
+                             r"loaded cached keys .* in) ([0-9.]+)s", out)
+            how = "device keygen + save" if kind == "cold" else "cache load"
+            if keys is None or (kind == "cold") != ("keygen" in keys[1]):
+                raise AssertionError(f"phase 10 {kind}: keys not by {how}")
+            report = ast.literal_eval(re.search(
+                r"warm-up \(overlapped\): (\{.*\})", out)[1])
+            targets = {"tiles", "zero_key_wopbs"} | {
+                f"nvcc_{name}" for name in KERNELS}
+            if not targets <= set(report):
+                raise AssertionError(f"phase 10 {kind}: warm-up report "
+                                     f"{report}")
+            ran = json.loads(re.search(r"LAUNCHES (\{.*\})", out)[1])
+            if min(ran.values()) < 1:
+                raise AssertionError(f"phase 10 {kind}: a kernel was not "
+                                     f"launched: {ran}")
+            for name in counts:
+                counts[name] += ran[name]
+            keyexp = re.search(r"AES key expansion took: ([0-9.]+)s", out)[1]
+            print(f"phase 10: {kind} start: first verified block at "
+                  f"{first:.2f} s after the process started; keys "
+                  f"{keys[2]} s ({how}); warm-up nvcc blind_rotate "
+                  f"{report['nvcc_blind_rotate']} s, vertical_packing "
+                  f"{report['nvcc_vertical_packing']} s (at once), tiles "
+                  f"{report['tiles']} s, zero-key WoPBS "
+                  f"{report['zero_key_wopbs']} s, joined at "
+                  f"{report['joined_at']} s (waited {report['waited']} s); "
+                  f"first key expansion {keyexp} s; launches {ran}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {path: counts}
 
 
 def main() -> int:
@@ -1027,7 +1132,9 @@ def main() -> int:
         else:
             os.environ["TFHE_AES_TPU_CACHE"] = old_cache
         shutil.rmtree(cache_dir, ignore_errors=True)
-    print(f"phase 9: key cache directory removed; whole script "
+    print("phase 9: key cache directory removed")
+    paths.update(_cold_start_phase(wrappers))
+    print(f"phase 10: temporary directory removed; whole script "
           f"{time.perf_counter() - t_start:.0f} s")
 
     def launch_fields(name):

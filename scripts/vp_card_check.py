@@ -49,8 +49,7 @@ def constant_keys(params, dev):
     rplan = keys.make_rotate_plan(params)
     none = torch.zeros(1, dtype=torch.int8)
     return keys._keys_from_arrays(params, plan, rplan, dict(
-        bsk_limbs=none, ksk_limbs=none, pfpksk_limbs=none,
-        **keys.host_leaves(plan, rplan, params))).to(dev)
+        bsk_limbs=none, ksk_limbs=none, pfpksk_limbs=none)).to(dev)
 
 
 def random_inputs(k, n_bytes, n_luts, nbits, dev):

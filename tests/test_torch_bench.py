@@ -71,3 +71,16 @@ def test_failed_verify_still_writes_the_cache(cache_dir, monkeypatch):
         bench.run(tiny_params(), blocks=1, repeats=1, device="cpu")
     assert serialization.cache_path(tiny_params(), 0).exists()
     assert not list(cache_dir.glob("*.tmp.npz"))
+
+
+def test_device_verify_on_the_cpu(cache_dir, monkeypatch, capsys):
+    """--device-verify: the verification and the decrypt round trip go
+    through decrypt_bits_device, never the host path."""
+    monkeypatch.setattr(Client, "fetch_and_verify_ctr", None)
+    monkeypatch.setattr(Client, "decrypt_state_u128", None)
+    bench.run(tiny_params(), blocks=1, repeats=1, decrypt=1, device="cpu",
+              device_verify=True)
+    err = capsys.readouterr().err
+    assert "# warm-up (overlapped with keygen): {" in err
+    assert "# verified 1 blocks bit-exact vs plaintext AES (device" in err
+    assert "# decrypt round-trip verified (1 blocks) by device decrypt" in err

@@ -6,6 +6,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import jax
@@ -169,6 +170,8 @@ def test_cli_accepts_the_reference_host_verify_flag(monkeypatch):
     assert port["host_verify"] is True
 
     ran = []
+    monkeypatch.setattr(cli.warmup, "precompile",
+                        lambda *a, **k: SimpleNamespace(join=dict))
     monkeypatch.setattr(cli, "client_and_keys", lambda *a: (None, None))
     monkeypatch.setattr(cli, "_run", lambda args, *a: ran.append(args))
     assert cli.main(argv + ["--device", "cpu"]) == 0

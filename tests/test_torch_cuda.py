@@ -149,3 +149,44 @@ def test_fast_keygen_on_the_card_equals_the_cpu(dev):
         leaf = getattr(got, name)
         assert leaf.is_cuda, name
         assert torch.equal(leaf.cpu(), getattr(want, name)), name
+
+
+def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
+    """After the warm-up's join(), a key expansion on real keys runs no
+    nvcc and builds no tile: the libraries are loaded and the real keys'
+    constant leaves are the warm-up's, with their tiles."""
+    from tfhe_aes_tpu_torch.models import fhe_aes
+    from tfhe_aes_tpu_torch.ops import cuda_build, keys as keys_mod
+    from tfhe_aes_tpu_torch.utils import warmup
+
+    cuda_build._libs.clear()
+    cuda_build._derived.clear()
+    keys_mod._constants.clear()
+    warm = warmup.precompile(PARAM_TOY_VP, 1, device=dev)
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    report = warm.join()
+    assert {"tiles", "zero_key_wopbs", "nvcc_blind_rotate",
+            "nvcc_vertical_packing"} <= set(report), report
+    assert set(cuda_build._libs) == {"blind_rotate", "vertical_packing"}
+
+    built = []
+
+    def no_nvcc():
+        built.append("nvcc")
+        raise AssertionError("nvcc after the warm-up")
+
+    derived = cuda_build.derived
+
+    def spy(leaf, what, build):
+        return derived(leaf, what, lambda m: built.append(what) or build(m))
+    monkeypatch.setattr(cuda_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_build, "derived", spy)
+    launches = (cuda_blind_rotate.blind_rotate_cuda.launches,
+                cuda_vp.vp_rotations_cuda.launches)
+    enc_key = torus.from_u64(client.encrypt_u128(0x2B7E1516), dev)
+    rks = fhe_aes.aes_key_expansion(k, enc_key)
+    torch.cuda.synchronize()
+    assert built == []
+    assert cuda_blind_rotate.blind_rotate_cuda.launches > launches[0]
+    assert cuda_vp.vp_rotations_cuda.launches > launches[1]
+    assert tuple(rks.shape) == (11,) + tuple(enc_key.shape)

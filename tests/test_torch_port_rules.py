@@ -15,12 +15,13 @@ from tfhe_aes_tpu_torch.client import keygen_fast
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.ops import cuda_build
 from tfhe_aes_tpu_torch.params import PARAM_TOY
-from tfhe_aes_tpu_torch.utils import device
+from tfhe_aes_tpu_torch.utils import device, warmup
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tfhe_aes_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-    REPO / "scripts" / "vp_card_check.py", REPO / "scripts" / "vp_stage_cut.py"]
+    REPO / "scripts" / "vp_card_check.py", REPO / "scripts" / "vp_stage_cut.py",
+    REPO / "scripts" / "cold_start.py"]
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -42,7 +43,7 @@ def test_port_file_imports_no_jax_package(path):
 
 
 @pytest.mark.parametrize("entry", ["client", "keygen_fast", "test_harness",
-                                   "noise_study"])
+                                   "noise_study", "warmup"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device given, each entry point wants the card and raises
     when there is none."""
@@ -55,6 +56,7 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "test_harness": lambda: cli.run_test_harness(PARAM_TOY, 0, seed=1,
                                                      use_cache=False),
         "noise_study": lambda: noise_study.main(["--params", "toy"]),
+        "warmup": lambda: warmup.precompile(PARAM_TOY, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

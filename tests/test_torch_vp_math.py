@@ -290,8 +290,7 @@ def _toy_keys(params):
     plan, rplan = _plan(params), keys.make_rotate_plan(params)
     none = torch.zeros(1, dtype=torch.int8)
     return keys._keys_from_arrays(params, plan, rplan, dict(
-        bsk_limbs=none, ksk_limbs=none, pfpksk_limbs=none,
-        **keys.host_leaves(plan, rplan, params)))
+        bsk_limbs=none, ksk_limbs=none, pfpksk_limbs=none))
 
 
 @pytest.mark.parametrize("params,n_bytes,n_luts", [

@@ -1,7 +1,8 @@
 """Benchmark: FHE AES-128 CTR throughput of the torch port on one card.
 
     python -m tfhe_aes_tpu_torch.bench [--blocks 64] [--params {prod,tpu,toy}]
-        [--repeats 2] [--skip-verify] [--decrypt N] [--device {cuda,cpu}]
+        [--repeats 2] [--skip-verify] [--device-verify] [--decrypt N]
+        [--device {cuda,cpu}]
 
 Counterpart of the root bench.py.  Prints one JSON line, the last line on
 stdout: {"metric": "aes128_ctr_blocks_per_min", "value", "unit",
@@ -10,13 +11,16 @@ stderr.  Baseline: the reference's published 84 s/block on one CPU core
 = 0.714 blocks/min.  The metric is CTR keystream blocks/min at a batch of
 --blocks, each repeat at another counter offset, host LUT building inside
 the timed window, every window ended by a device fence; the blocks are
-then decrypted on the host (the client) and checked against plaintext
-AES.  ``device`` names the card and how many there are, or is "cpu":
-``--device cpu`` runs the plain torch versions, never a card's number.
+then decrypted on the host (the client; on the device with
+``--device-verify``) and checked against plaintext AES.  ``device`` names
+the card and how many there are, or is "cpu": ``--device cpu`` runs the
+plain torch versions, never a card's number.
 
 Keys come from the key cache (utils/serialization.cache_path(params, 0),
 shared with the JAX package) or from device keygen, saved to the cache
-in a thread that is always joined before run() returns.
+in a thread that is always joined before run() returns.  The cold-start
+warm-up (utils/warmup.py) runs beside the key load or keygen and is
+joined before the first key expansion.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from .client.client import Client
 from .params import ParamSet
 from .server import Server
 from .utils import device as device_mod
-from .utils import profiling, serialization, torus
+from .utils import profiling, serialization, torus, warmup
 
 BASELINE_BLOCKS_PER_MIN = 60.0 / 84.0  # reference: 84 s/block, 1 CPU core
 IV = 0x00112233445566778899AABBCCDDEEFF
@@ -54,10 +58,12 @@ def device_record(device: torch.device):
 
 
 def run(params: ParamSet, blocks: int = 64, repeats: int = 2,
-        decrypt: int = 0, skip_verify: bool = False, device=None) -> dict:
-    """Key load or keygen, key expansion (first and warm), a warm-up CTR
-    batch and `repeats` timed ones, the JSON line on stdout, then host
-    verification and the optional decrypt benchmark.  Returns the record
+        decrypt: int = 0, skip_verify: bool = False, device=None,
+        device_verify: bool = False) -> dict:
+    """Key load or keygen beside the warm-up, key expansion (first and
+    warm), a warm-up CTR batch and `repeats` timed ones, the JSON line on
+    stdout, then verification (on the host; on the device with
+    device_verify) and the optional decrypt benchmark.  Returns the record
     of the JSON line.  `device` is the card unless the caller asks for the
     CPU; raises without a card."""
     device = device_mod.resolve(device)
@@ -65,6 +71,7 @@ def run(params: ParamSet, blocks: int = 64, repeats: int = 2,
         torch.cuda.reset_peak_memory_stats(device)
     log(f"# device: {device_record(device)}, params: {params.name}, "
         f"blocks: {blocks}")
+    warm = warmup.precompile(params, blocks, device=device)
     cache = serialization.cache_path(params, 0)
     t0 = time.perf_counter()
     client = Client(params, seed=0)
@@ -83,15 +90,18 @@ def run(params: ParamSet, blocks: int = 64, repeats: int = 2,
             how = "device keygen"
         profiling.device_fence(dkeys.bsk_limbs)
         log(f"# keys ready in {time.perf_counter() - t0:.1f}s ({how})")
+        report = warm.join()
+        log(f"# warm-up (overlapped with keygen): {report} joined at "
+            f"{report['joined_at']:.1f} s")
         record = _measure(client, Server(dkeys), params, blocks, repeats,
-                          decrypt, skip_verify, device)
+                          decrypt, skip_verify, device, device_verify)
         if saving is not None:
             saving.result()
     return record
 
 
 def _measure(client, server, params, blocks, repeats, decrypt, skip_verify,
-             device) -> dict:
+             device, device_verify) -> dict:
     enc_key = torus.from_u64(client.encrypt_u128(KEY), device)
     enc_iv = torus.from_u64(client.encrypt_u128(IV), device)
     for label in ("first", "warm"):
@@ -134,10 +144,14 @@ def _measure(client, server, params, blocks, repeats, decrypt, skip_verify,
     }
     print(json.dumps(record), flush=True)
 
+    where = "device" if device_verify else "host"
     if not skip_verify:
         t0 = time.perf_counter()
-        client.fetch_and_verify_ctr(out, KEY, IV, offset=last_offset)
-        log(f"# verified {blocks} blocks bit-exact vs plaintext AES (host "
+        if device_verify:
+            client.verify_ctr_device(out, KEY, IV, offset=last_offset)
+        else:
+            client.fetch_and_verify_ctr(out, KEY, IV, offset=last_offset)
+        log(f"# verified {blocks} blocks bit-exact vs plaintext AES ({where} "
             f"decrypt, {time.perf_counter() - t0:.1f}s, outside the metric)")
 
     if decrypt:
@@ -154,18 +168,22 @@ def _measure(client, server, params, blocks, repeats, decrypt, skip_verify,
             f"{nd / t_dec * 60:.3f} blocks/min (encrypt: "
             f"{blocks_per_min:.3f})")
         if not skip_verify:
-            host = torus.to_u64(back)
-            for i in range(nd):
+            if device_verify:
+                got_all = client.decrypt_states_device(back)
+            else:
+                got_all = [client.decrypt_state_u128(s)
+                           for s in torus.to_u64(back)]
+            for i, got in enumerate(got_all):
                 want = (IV + last_offset + i) % (1 << 128)
-                got = client.decrypt_state_u128(host[i])
                 if got != want:
                     raise AssertionError(f"decrypt round-trip block {i}: "
                                          f"{got:#x} != {want:#x}")
-            log(f"# decrypt round-trip verified ({nd} blocks)")
+            log(f"# decrypt round-trip verified ({nd} blocks) by {where} "
+                f"decrypt")
     return record
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m tfhe_aes_tpu_torch.bench",
         description="FHE AES-128 CTR blocks/min of the torch port")
@@ -177,6 +195,11 @@ def main(argv=None) -> int:
                          "PARAM_TOY (no security)")
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--skip-verify", action="store_true")
+    ap.add_argument("--device-verify", action="store_true",
+                    help="measurement-only shortcut: decrypt on-device "
+                         "(ships the secret key to the accelerator).  The "
+                         "default verifies on the CLIENT via chunked D2H — "
+                         "the trust boundary the Server facade models")
     ap.add_argument("--decrypt", type=int, default=0, metavar="N",
                     help="also time homomorphic AES decryption of N blocks "
                          "of the keystream and check the round trip "
@@ -184,9 +207,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda needs a card and fails without one; cpu "
                          "runs the plain torch versions")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     run(PARAMS[args.params], args.blocks, args.repeats, args.decrypt,
-        args.skip_verify, args.device)
+        args.skip_verify, args.device, args.device_verify)
     return 0
 
 

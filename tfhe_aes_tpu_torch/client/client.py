@@ -4,7 +4,8 @@ Counterpart of tfhe_aes_tpu/client/client.py without jax: the same
 csprng.default_rng(seed) draws in the same order, so one seed gives the
 same secret keys, evaluation keys and ciphertexts in both packages.
 Ciphertexts cross to the server as numpy u64 arrays (``utils.torus.
-from_u64`` puts them on a device) and come back through ``.cpu()``.
+from_u64`` puts them on a device) and come back through ``.cpu()``;
+``verify_ctr_device`` is the bench's shortcut that decrypts on the card.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..backend import numpy_backend as nb
 from ..models import aes_plain
@@ -112,11 +114,47 @@ class Client:
         return got
 
     def fetch_and_verify_ctr(self, states_dev, key: int, iv: int,
-                             offset: int = 0) -> list[int]:
-        """Pull device states [n, 16, 8, big+1] to the host and verify
-        them there: the secret key never leaves the client."""
-        return self.decrypt_and_verify_ctr(torus.to_u64(states_dev), key, iv,
-                                           offset)
+                             offset: int = 0, chunk: int = 8) -> list[int]:
+        """Pull device states [n, 16, 8, big+1] to the host in slices of
+        `chunk` blocks and verify them there: the secret key never leaves
+        the client."""
+        got = []
+        for lo in range(0, states_dev.shape[0], chunk):
+            host = torus.to_u64(states_dev[lo:lo + chunk])
+            got += [self.decrypt_state_u128(s) for s in host]
+        _verify(got, key, iv, offset)
+        return got
+
+    # -- device-side decryption (bench / verification convenience) ----------
+    def decrypt_bits_device(self, states) -> np.ndarray:
+        """Decrypt on the states' device; only the plaintext bits cross to
+        the host: [..., big+1] -> [...] uint64 bits.
+
+        The phase b - <a, s> is taken in int64 that wraps mod 2^64, its
+        rounded top bit with a logical shift.  Bench-only shortcut: in a
+        real deployment the secret key never leaves the client, and here
+        it goes to the card.
+        """
+        sk = torus.from_u64(self.sk.big_lwe_key, states.device)
+        phase = states[..., -1] - (states[..., :-1] * sk).sum(dim=-1)
+        bits = torus.shr(phase + (1 << 62), 63)
+        return bits.to(torch.uint8).cpu().numpy().astype(U64)
+
+    def decrypt_states_device(self, states) -> list[int]:
+        """Device-resident states [n, 16, 8, big+1] -> n u128 blocks,
+        decrypted where they are (decrypt_bits_device)."""
+        bits = self.decrypt_bits_device(states).astype(np.int64)
+        byts = (bits << np.arange(8)).sum(axis=-1)              # [n, 16]
+        return [aes_plain.bytes_be_to_u128([int(b) for b in row])
+                for row in byts]
+
+    def verify_ctr_device(self, states, key: int, iv: int,
+                          offset: int = 0) -> list[int]:
+        """Device-resident states [n, 16, 8, big+1]: decrypt them where they
+        are and raise unless block i == AES(key, iv + offset + i)."""
+        got = self.decrypt_states_device(states)
+        _verify(got, key, iv, offset)
+        return got
 
 
 def _verify(got: list[int], key: int, iv: int, offset: int) -> None:

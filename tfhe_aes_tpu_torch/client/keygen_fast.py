@@ -12,6 +12,8 @@ products with XLA dot_general, this one with torch._int_mm (``int8_dot``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -141,7 +143,7 @@ def pack_device_keys(p: ParamSet, glwe_key: np.ndarray, bsk: np.ndarray,
     rows = bsk.transpose(0, 2, 1, 3, 4).reshape(-1, kp1, n)
     rows = keys_mod.cancel_mask_rounding(rows, glwe_key,
                                          rplan.q_bits).reshape(-1, n)
-    rfwd = torch.from_numpy(rplan.fwd_limbs).to(device)
+    rfwd = keys_mod.constant_leaves(plan, rplan, p, device)["rfwd_limbs"]
     chunk = 16384
     res = torch.cat([stage_bsk_rows(rplan,
                                     torus.from_u64(rows[lo:lo + chunk],
@@ -152,9 +154,25 @@ def pack_device_keys(p: ParamSet, glwe_key: np.ndarray, bsk: np.ndarray,
     keys = keys_mod._keys_from_arrays(p, plan, rplan, dict(
         bsk_limbs=keys_mod.bsk_residues_to_device(bsk_ntt),
         ksk_limbs=keys_mod.pack_ksk(p, ksk),
-        pfpksk_limbs=keys_mod.pack_pfpksk(p, pfp),
-        **keys_mod.host_leaves(plan, rplan, p)))
+        pfpksk_limbs=keys_mod.pack_pfpksk(p, pfp)))
     return keys.to(device)
+
+
+def zero_device_keys(params: ParamSet, device=None) -> keys_mod.DeviceKeys:
+    """All-zero key material in the leaves' shapes and dtypes
+    (keys.device_keys_shapes: zero keys pack to zero limbs), with the
+    constant leaves shared on `device` (default: the card; raises without
+    one unless device="cpu").
+
+    For the cold-start warm-up only (utils/warmup.py): what runs under
+    them launches every kernel of the real path, and decrypts to nothing.
+    """
+    device = device_mod.resolve(device)
+    shapes = keys_mod.device_keys_shapes(params, device)
+    return dataclasses.replace(shapes, **{
+        name: torch.zeros(getattr(shapes, name).shape, dtype=torch.int8,
+                          device=device)
+        for name in keys_mod.MATERIAL_LEAVES})
 
 
 def make_device_keys_fast(sk: nb.SecretKeys, rng: np.random.Generator,

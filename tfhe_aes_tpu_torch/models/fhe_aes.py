@@ -307,13 +307,31 @@ def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
 
 
 def ctr_keystream(keys: DeviceKeys, round_keys, enc_iv, n_blocks: int,
-                  offset: int = 0):
-    """FHE keystream blocks AES(key, iv + offset + t), t < n_blocks, as one
-    batch (the WoPBS tails chunk themselves by device memory)."""
+                  offset: int = 0, *, block_chunk: int | None = None):
+    """FHE keystream blocks AES(key, iv + offset + t), t < n_blocks.
+
+    block_chunk=None: one batch (the WoPBS tails chunk themselves by
+    device memory).  An integer gives the JAX package's chunked path
+    (tfhe_aes_tpu/models/fhe_aes.ctr_keystream): up to block_chunk blocks
+    as one batch; above, the ripple add once at the full batch, then AES
+    in balanced chunks of at most block_chunk blocks, the ragged last one
+    wrap-padded with the first blocks.  Both give the same words."""
     lut_lsb, luts_rest = add_scalar_luts(keys.params,
                                          counter_bytes(n_blocks, offset))
-    return ctr_step(keys, round_keys, enc_iv, _on(lut_lsb, enc_iv),
-                    _on(luts_rest, enc_iv))
+    lut_lsb, luts_rest = _on(lut_lsb, enc_iv), _on(luts_rest, enc_iv)
+    if block_chunk is None or n_blocks <= block_chunk:
+        return ctr_step(keys, round_keys, enc_iv, lut_lsb, luts_rest)
+    state = enc_iv[None].expand((n_blocks,) + enc_iv.shape)
+    state = add_scalar_device(keys, state, lut_lsb, luts_rest)
+    bc = wopbs._chunk_size(n_blocks, block_chunk)
+    outs = []
+    for lo in range(0, n_blocks, bc):
+        sl = state[lo:lo + bc]
+        pad = bc - sl.shape[0]
+        if pad:
+            sl = torch.cat([sl, state[:pad]])
+        outs.append(aes_encrypt(keys, round_keys, sl)[:bc - pad])
+    return torch.cat(outs)
 
 
 def counter_bytes(n_blocks: int, offset: int = 0) -> np.ndarray:

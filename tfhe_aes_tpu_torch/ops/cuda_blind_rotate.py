@@ -68,6 +68,16 @@ def inverse_tiles(inv_crt_full: torch.Tensor,
     return kmajor_tiles(t.reshape(pcount, two_n, two_n))
 
 
+def rotate_tiles(fwd_full: torch.Tensor,
+                 inv_crt_full: torch.Tensor) -> tuple:
+    """K1's and K2's B operands of a key set's NTT matrices, made once per
+    leaf (cuda_build.derived)."""
+    pn = fwd_full.shape[1] // 2
+    return (cuda_build.derived(fwd_full, "forward_tiles",
+                               lambda m: forward_tiles(m, pn)),
+            cuda_build.derived(inv_crt_full, "inverse_tiles", inverse_tiles))
+
+
 def scratch_rows(params: ParamSet, n_bits: int) -> tuple[int, int]:
     """(rows of the digit operand A, rows a prime of X): bits padded to
     whole 128-row tiles of R rows padded to 16 or 32; B (k+1) padded to
@@ -129,9 +139,7 @@ def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
     tilde, acc = rotate_setup(plan, params, lwe_ct, test_glwe)
     tilde = tilde.contiguous()
     acc = acc.contiguous().clone()
-    fwd = cuda_build.derived(fwd_full, "forward_tiles",
-                             lambda m: forward_tiles(m, pn))
-    inv = cuda_build.derived(inv_crt_full, "inverse_tiles", inverse_tiles)
+    fwd, inv = rotate_tiles(fwd_full, inv_crt_full)
     bsk = bsk_limbs.contiguous()
     rot = rot_table.contiguous()
     a_buf = torch.zeros(rows1 * dn, dtype=torch.int8, device=dev)

@@ -5,7 +5,9 @@ with a plain C interface, loaded through ctypes.  The build happens at first
 use, into ``tfhe_aes_tpu_torch/_build/`` (git-ignored), keyed by a hash of
 every file under ``csrc/`` and the flags, so that no change to a source or
 a header can load a stale library.  Nothing here runs at import time: the
-CPU tests import every module.
+CPU tests import every module.  Both caches here are safe under threads:
+the cold-start warm-up (utils/warmup.py) builds the libraries and the
+tiles in threads of its own while keygen runs.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import weakref
+
+import torch
 
 from . import modular
 
@@ -27,7 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_build_locks: dict[str, threading.Lock] = {}
+_build_locks_guard = threading.Lock()
 _derived: dict[tuple[str, int], tuple] = {}
+_derived_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -49,22 +57,32 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; raises on any failure."""
-    if name in _libs:
-        return _libs[name]
-    src = CSRC / f"{name}.cu"
-    so = library_path(name)
-    if not so.exists():
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f"tmp{os.getpid()}-{so.name}"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _libs[name] = lib
+    """Build (if needed) and load csrc/<name>.cu; raises on any failure.
+
+    One build a library in a process: a second caller waits for the
+    first one's build (the temporary file is named by the process only)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _build_locks_guard:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        if name in _libs:
+            return _libs[name]
+        src = CSRC / f"{name}.cu"
+        so = library_path(name)
+        if not so.exists():
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = BUILD_DIR / f"tmp{os.getpid()}-{so.name}"
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name}:\n{proc.stderr}")
+            os.replace(tmp, so)
+        lib = _libs[name] = ctypes.CDLL(str(so))
     return lib
 
 
@@ -86,12 +104,18 @@ def derived(leaf, what: str, build):
     """build(leaf), made once per key leaf: the kernels' tile-ordered forms
     of the constant NTT matrices.  Held as long as the leaf tensor itself
     lives (a key set's leaves are never written), on the leaf's device, and
-    never stored in the key cache."""
+    never stored in the key cache.  Built once also under threads, and
+    complete before it is published: a reader on another stream than the
+    maker's needs no wait."""
     key = (what, id(leaf))
-    hit = _derived.get(key)
-    if hit is None or hit[0]() is not leaf:
-        ref = weakref.ref(leaf, lambda _: _derived.pop(key, None))
-        hit = _derived[key] = (ref, build(leaf))
+    with _derived_lock:
+        hit = _derived.get(key)
+        if hit is None or hit[0]() is not leaf:
+            made = build(leaf)
+            if made.is_cuda:
+                torch.cuda.current_stream(made.device).synchronize()
+            ref = weakref.ref(leaf, lambda _: _derived.pop(key, None))
+            hit = _derived[key] = (ref, made)
     return hit[1]
 
 

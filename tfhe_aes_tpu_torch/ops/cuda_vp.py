@@ -133,6 +133,17 @@ def check_shape(params: ParamSet, plan: ntt.NttPlan, n_bytes: int,
                          f"are more rows than its grid holds")
 
 
+def vp_tiles(keys: DeviceKeys) -> tuple:
+    """V1's and V2's B operands of a key set's NTT matrices, made once per
+    leaf (cuda_build.derived)."""
+    pn = keys.plan.n_primes * keys.params.polynomial_size
+    return (cuda_build.derived(
+                keys.fwd_limbs, "vp forward_tiles",
+                lambda m: cbr.forward_tiles(forward_matrix(m), pn)),
+            cuda_build.derived(keys.vp_inv_full, "vp inverse_tiles",
+                               lambda m: cbr.inverse_tiles(m, V2_COLS)))
+
+
 def vp_rotations_cuda(keys: DeviceKeys, acc: torch.Tensor,
                       ggsw_ntt: torch.Tensor) -> torch.Tensor:
     """acc [B, L, k+1, N] u64 words; ggsw_ntt [nbits, P, B, k+1, k+1, N]
@@ -153,11 +164,7 @@ def vp_rotations_cuda(keys: DeviceKeys, acc: torch.Tensor,
     dev = acc.device
     acc = acc.contiguous().clone()
     g = ggsw_ntt.contiguous()
-    fwd = cuda_build.derived(
-        keys.fwd_limbs, "vp forward_tiles",
-        lambda m: cbr.forward_tiles(forward_matrix(m), pn))
-    inv = cuda_build.derived(keys.vp_inv_full, "vp inverse_tiles",
-                             lambda m: cbr.inverse_tiles(m, V2_COLS))
+    fwd, inv = vp_tiles(keys)
     rows1, rows2 = scratch_rows(kp1, B * L)
     a_buf = torch.zeros(rows1 * 2 * n, dtype=torch.int8, device=dev)
     x_buf = torch.zeros(pcount * rows2 * 2 * n, dtype=torch.int8, device=dev)

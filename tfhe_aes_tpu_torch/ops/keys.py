@@ -4,11 +4,16 @@ Counterpart of tfhe_aes_tpu/ops/keys.py.  The packers are the same numpy
 code (re-homed here because that module imports jax), so the same secret
 keys and RNG give the same staged words; ``DeviceKeys`` holds the same
 leaves in the same layouts, as torch tensors, with an explicit ``.to``.
+The leaves that depend only on the parameters (the NTT matrices and
+twiddles, CONSTANT_LEAVES) are made once per device and shared by every
+key set there (``constant_leaves``), so the kernels' tiles of them
+(ops/cuda_build.derived) are made once too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -18,12 +23,16 @@ from .. import runtime
 from ..backend import numpy_backend as nb
 from ..params import ParamSet
 from ..utils import crt
+from ..utils import device as device_mod
 from . import modular, ntt
 
 # Names of the tensor leaves, in the order of tfhe_aes_tpu.ops.keys.DeviceKeys.
 KEY_LEAVES = ("bsk_limbs", "ksk_limbs", "pfpksk_limbs", "fwd_limbs",
               "inv_crt_limbs", "rfwd_limbs", "rinv_crt_limbs", "fwd_full",
               "inv_crt_full", "rot_table", "vp_fwd3", "vp_inv_full")
+# The key material, and the leaves made from the plans alone.
+MATERIAL_LEAVES = KEY_LEAVES[:3]
+CONSTANT_LEAVES = KEY_LEAVES[3:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +106,13 @@ class DeviceKeys:
         return self.bsk_limbs.device
 
     def to(self, device) -> "DeviceKeys":
-        """A copy with every tensor leaf on `device`."""
-        return dataclasses.replace(self, **{
-            name: getattr(self, name).to(device) for name in KEY_LEAVES})
+        """A copy with every tensor leaf on `device`: the key material
+        copied, the constant leaves the ones shared there."""
+        return dataclasses.replace(
+            self, **constant_leaves(self.plan, self.rplan, self.params,
+                                    device),
+            **{name: getattr(self, name).to(device)
+               for name in MATERIAL_LEAVES})
 
 
 def poly_to_ntt_residues_host(primes, polys_u64: np.ndarray,
@@ -228,12 +241,16 @@ def make_rotate_plan(p: ParamSet) -> ntt.NttPlan:
 
 
 def _keys_from_arrays(params: ParamSet, plan: ntt.NttPlan,
-                      rplan: ntt.NttPlan, leaves: dict) -> DeviceKeys:
-    """numpy leaves become CPU tensors; tensor leaves stay where they are."""
-    return DeviceKeys(params=params, plan=plan, rplan=rplan, **{
-        name: leaves[name] if isinstance(leaves[name], torch.Tensor)
-        else torch.from_numpy(np.ascontiguousarray(leaves[name]))
-        for name in KEY_LEAVES})
+                      rplan: ntt.NttPlan, material: dict) -> DeviceKeys:
+    """Key material (MATERIAL_LEAVES) and the shared constant leaves on
+    the CPU: numpy leaves become CPU tensors, tensor leaves stay where
+    they are."""
+    return DeviceKeys(
+        params=params, plan=plan, rplan=rplan,
+        **constant_leaves(plan, rplan, params, "cpu"), **{
+            name: material[name] if isinstance(material[name], torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(material[name]))
+            for name in MATERIAL_LEAVES})
 
 
 def host_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet) -> dict:
@@ -248,6 +265,65 @@ def host_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet) -> dict:
         rot_table=ntt.rot_table_merged(rplan),
         vp_fwd3=ntt.fwd_cat3_host(plan),
         vp_inv_full=ntt.inv_crt_full_host(plan))
+
+
+_constants: dict[tuple, dict] = {}
+_constants_lock = threading.Lock()
+
+
+def _canonical(device) -> torch.device:
+    """`device` with its index: "cuda" and "cuda:0" name one card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def constant_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet,
+                    device) -> dict:
+    """The CONSTANT_LEAVES as tensors on `device`, made once per (plans,
+    BSK base log, device) and shared by every key set there.  A card's
+    leaves are complete before they are published: a reader on another
+    stream than the maker's needs no wait.  Never written."""
+    dev = _canonical(device)
+    key = (plan, rplan, p.pbs_base_log, dev)
+    with _constants_lock:
+        made = _constants.get(key)
+        if made is None:
+            made = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+                    for name, arr in host_leaves(plan, rplan, p).items()}
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            _constants[key] = made
+    return dict(made)
+
+
+def device_keys_shapes(params: ParamSet, device=None) -> DeviceKeys:
+    """Keys whose key material is shape and dtype only (meta tensors) and
+    whose constant leaves are the shared ones on `device` (default: the
+    card; raises without one unless device="cpu").
+
+    Counterpart of tfhe_aes_tpu/ops/keys.device_keys_shapes: the leaves
+    of real keys of `params`, before a key bit exists (utils/warmup.py).
+    """
+    device = device_mod.resolve(device)
+    p = params
+    plan = ntt.make_plan(p.polynomial_size, crt.ntt_primes())
+    rplan = make_rotate_plan(p)
+    k, n = p.glwe_dimension, p.polynomial_size
+    kp1 = k + 1
+    n_pad = -(-p.lwe_dimension // BSK_STEP_PAD) * BSK_STEP_PAD
+    shapes = dict(
+        bsk_limbs=(n_pad, kp1 * p.pbs_level * 2 * kp1, rplan.n_primes * n),
+        ksk_limbs=(p.big_lwe_dimension * p.ks_level,
+                   (p.lwe_dimension + 1) * 8),
+        pfpksk_limbs=((p.big_lwe_dimension + 1) * p.pfks_level,
+                      kp1 * kp1 * n * 8))
+    return DeviceKeys(
+        params=p, plan=plan, rplan=rplan,
+        **constant_leaves(plan, rplan, p, device),
+        **{name: torch.empty(shape, dtype=torch.int8, device="meta")
+           for name, shape in shapes.items()})
 
 
 def make_device_keys(sk: nb.SecretKeys, rng: np.random.Generator,
@@ -266,8 +342,7 @@ def make_device_keys(sk: nb.SecretKeys, rng: np.random.Generator,
         bsk_limbs=bsk_residues_to_device(torch.from_numpy(
             pack_bsk(p, rplan, bsk, glwe_key=sk.glwe_key))),
         ksk_limbs=pack_ksk(p, ksk),
-        pfpksk_limbs=pack_pfpksk(p, pfp),
-        **host_leaves(plan, rplan, p)))
+        pfpksk_limbs=pack_pfpksk(p, pfp)))
 
 
 def keys_from_numpy(dkeys) -> DeviceKeys:
@@ -275,7 +350,8 @@ def keys_from_numpy(dkeys) -> DeviceKeys:
 
     Its leaves are numpy arrays when made with
     ``Client.make_device_keys(fast=False)``; ``np.asarray`` covers device
-    arrays too.  The plans are rebuilt here from the same primes and q.
+    arrays too.  The plans are rebuilt here from the same primes and q,
+    and the constant leaves are this package's shared ones of them.
     """
     p = dkeys.params
     plan = ntt.make_plan(dkeys.plan.n, tuple(dkeys.plan.primes),
@@ -283,4 +359,4 @@ def keys_from_numpy(dkeys) -> DeviceKeys:
     rplan = ntt.make_plan(dkeys.rplan.n, tuple(dkeys.rplan.primes),
                           dkeys.rplan.q_bits)
     return _keys_from_arrays(p, plan, rplan, {
-        name: np.asarray(getattr(dkeys, name)) for name in KEY_LEAVES})
+        name: np.asarray(getattr(dkeys, name)) for name in MATERIAL_LEAVES})

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -97,11 +98,22 @@ def _host_rot_table(primes, n: int) -> np.ndarray:
     return np.stack(out).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=None)
+_plan_lock = threading.Lock()
+
+
 def make_plan(n: int, primes: tuple[int, ...] | None = None,
               q_bits: int = 64) -> NttPlan:
-    """Plan constructor, cached per (n, primes, q_bits)."""
-    primes = primes or crt.ntt_primes()
+    """Plan constructor, cached per (n, primes, q_bits): one object for
+    each, also under concurrent first calls (the warm-up's threads and
+    keygen), since the shared constant leaves and their kernel tiles are
+    keyed on the plan's identity."""
+    primes = tuple(int(p) for p in (primes or crt.ntt_primes()))
+    with _plan_lock:
+        return _make_plan(n, primes, q_bits)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_plan(n: int, primes: tuple[int, ...], q_bits: int) -> NttPlan:
     cst = crt.crt_constants(tuple(primes), q_bits)
     pow2 = np.stack([
         modular.host_balanced([pow(2, 8 * i, p) for i in range(8)], p)

@@ -2,8 +2,8 @@
 
 Counterpart of tfhe_aes_tpu/ops/wopbs.py.  The circuit-bootstrap blind
 rotates run at the full bit batch; the packing-keyswitch / NTT-staging /
-vertical-packing tail runs over byte chunks in a Python loop, the chunk
-sized from the device's free memory.
+vertical-packing tail runs over balanced byte chunks in a Python loop,
+capped by the device's free memory.
 """
 
 from __future__ import annotations
@@ -50,6 +50,16 @@ def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
     return max(1, min(n_bytes, free // 2 // per_byte))
 
 
+def _chunk_size(b: int, target: int) -> int:
+    """Balanced chunk size <= target: ceil(b / ceil(b / target)), as
+    tfhe_aes_tpu/ops/wopbs._chunk_size (the last chunk may be shorter by
+    less than the number of chunks)."""
+    if b <= target:
+        return b
+    nc = -(-b // target)
+    return -(-b // nc)
+
+
 def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
                lut_polys: torch.Tensor, *,
                vp_chunk: int | None = None) -> torch.Tensor:
@@ -58,9 +68,11 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     byte_bits_big: [B, nbits, big+1] u64 words, LSB first.
     lut_polys:     [B or 1, L, C, N] u64 words.
     Returns [B, L, big+1] fresh big-LWEs of each output bit.
-    vp_chunk: bytes per tail chunk (default: chunk_bytes).  On keys with
-    a contraction shard every chunk's products are summed over the
-    shard's group, so its ranks take the least of their chunks.
+    vp_chunk: the most bytes a tail chunk (default: chunk_bytes); the
+    chunks are balanced under it (_chunk_size).  On keys with a
+    contraction shard every chunk's products are summed over the shard's
+    group, so its ranks first take the least of their caps, and every
+    rank cuts the same chunks.
     When utils/noise_asserts is armed, the input and the output are
     checked against the noise model.
     """
@@ -71,9 +83,10 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
     lev, np1 = bigs.shape[0], bigs.shape[-1]
     bigs = bigs.reshape(lev, B, nbits, np1)
-    bc = vp_chunk or chunk_bytes(keys, B, lut_polys.shape[1], nbits)
+    cap = vp_chunk or chunk_bytes(keys, B, lut_polys.shape[1], nbits)
     if keys.shard is not None:
-        bc = keys.shard.agree_min(bc, byte_bits_big.device)
+        cap = keys.shard.agree_min(cap, byte_bits_big.device)
+    bc = _chunk_size(B, cap)
     outs = []
     for lo in range(0, B, bc):
         hi = min(B, lo + bc)

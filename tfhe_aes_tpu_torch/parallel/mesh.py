@@ -24,7 +24,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..models import fhe_aes
-from ..ops.keys import KEY_LEAVES, ContractionShard, DeviceKeys
+from ..ops.keys import (MATERIAL_LEAVES, ContractionShard, DeviceKeys,
+                        constant_leaves)
 from ..utils import device as device_mod
 
 
@@ -100,19 +101,20 @@ def shard_keys(mesh: Mesh, keys: DeviceKeys,
                shard_contractions: bool = False) -> DeviceKeys:
     """Stage evaluation keys on this rank's device.
 
-    Every leaf is broadcast from global rank 0, so rank 0's keys are the
-    ones every rank uses.  With shard_contractions, each 'mp' rank keeps
+    The key material is broadcast from global rank 0, so rank 0's keys
+    are the ones every rank uses; the constant leaves are the ones shared
+    on this rank's device (keys.constant_leaves: every rank makes the same
+    from the same plans).  With shard_contractions, each 'mp' rank keeps
     only its rows of the keyswitch keys' contraction axes (ksk_limbs
     [big*ks_level, ...], pfpksk_limbs [(big+1)*pfks_level, ...]); the
     returned keys' `shard` records the 'mp' group and the rows, and
     keyswitch / packing keyswitch sum their int32 products over 'mp'.
     The BSK stays whole on every rank, as in the JAX package.
     """
-    leaves = {}
-    for name in KEY_LEAVES:
+    leaves = constant_leaves(keys.plan, keys.rplan, keys.params, mesh.device)
+    for name in MATERIAL_LEAVES:
         t = getattr(keys, name).to(mesh.device, copy=True).contiguous()
-        # As raw bytes: NCCL has no int16 (rot_table).
-        dist.broadcast(t.view(torch.uint8), src=0)
+        dist.broadcast(t, src=0)
         leaves[name] = t
     shard = None
     if shard_contractions:

@@ -55,7 +55,9 @@ class Server:
         return fhe_aes.add_scalar(self.dkeys, state, i_bytes)
 
     def ctr_keystream(self, round_keys, enc_iv, n_blocks: int,
-                      offset: int = 0):
-        """FHE keystream AES(key, iv + offset + t), t < n_blocks."""
+                      offset: int = 0, *, block_chunk: int | None = None):
+        """FHE keystream AES(key, iv + offset + t), t < n_blocks
+        (block_chunk: fhe_aes.ctr_keystream)."""
         return fhe_aes.ctr_keystream(self.dkeys, round_keys, enc_iv,
-                                     n_blocks, offset)
+                                     n_blocks, offset,
+                                     block_chunk=block_chunk)

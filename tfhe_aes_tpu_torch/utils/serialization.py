@@ -3,8 +3,9 @@
 Counterpart of tfhe_aes_tpu/utils/serialization.py, one format for both
 packages: the same file names, fields and ``KEY_FORMAT``, the same
 ``TFHE_AES_TPU_CACHE`` directory rule, so a file either package writes
-loads in the other to the same keys.  ``load_keys`` returns CPU tensors;
-move them with ``DeviceKeys.to``.
+loads in the other to the same keys.  ``load_keys`` returns CPU tensors,
+the constant leaves the shared ones (keys.constant_leaves); move them
+with ``DeviceKeys.to``.
 """
 
 from __future__ import annotations
@@ -127,5 +128,4 @@ def load_keys(path) -> tuple[SecretKeys, keys_mod.DeviceKeys]:
     return sk, keys_mod._keys_from_arrays(params, plan, rplan, dict(
         bsk_limbs=bsk_limbs,
         ksk_limbs=z["ksk_limbs"],
-        pfpksk_limbs=z["pfpksk_limbs"],
-        **keys_mod.host_leaves(plan, rplan, params)))
+        pfpksk_limbs=z["pfpksk_limbs"]))
