@@ -27,7 +27,10 @@ the script exits non-zero:
   3. the main path at PARAM_TPU through Client and Server: host keygen,
      key expansion, two CTR keystream batches (4 and 8 blocks) at
      different offsets, host decryption checked against plaintext AES,
-     the kernels' launch counts;
+     the kernels' launch counts.  From here on every WoPBS of the
+     circuits (phases 3, 5-7, 8 (a), 10, 11) is a replay of a CUDA graph
+     captured at its first call of a key set and shape (ops/graphs.py);
+     phase 8 (b)'s sharded keys and the noise study (phase 9) run eagerly;
   4. device keygen: PARAM_TOY on the card equals the CPU leaf by leaf;
      PARAM_TPU timed beside phase 1's host keygen; its keys saved to the
      key cache in a temporary directory and loaded back to equal leaves;
@@ -62,15 +65,30 @@ the script exits non-zero:
      subprocess twice: cold (both nvcc builds in the warm-up, device
      keygen, the cache save) and warm (the built libraries, the saved
      keys); for each, the seconds to the first verified block, the
-     warm-up's report, keygen or key load and the first key expansion.
+     warm-up's report, keygen or key load and the first key expansion;
+ 11. the compiled dispatch units on phase 7's PARAM_TPU keys: the staged
+     key expansion graphed (first, warm) against every WoPBS eager, word
+     for word; graphed against eager word for word at every shape the
+     main path's graphs take (key expansion 16 B, L=16; the bench's
+     ripple add 64 B at 8 and 9 bits, L=9; its AES rounds 1024 B, L=24 and
+     L=8; decrypt 64 B, L=8 and L=32; pk-RCON 4, 12 and 4 B, L=8), each
+     graph's kernel nodes (read from its DOT dump) equal to the launches
+     that its replays add to the counts; the rotate alone at 16 and 128
+     bits, eager and replayed; a 4-block aes_decrypt eager and graphed,
+     each profiled (the card's busy share), back to the plaintexts; the
+     peak memory of the 1024-byte rounds, eager and graphed.  Times are
+     medians of 3.
 Every launch count is read from zero around one run of a path (phases 3,
 5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
 whose ranks count their own and report them; each of phase 9's two study
 runs, summed; phase 10's two CLI processes, each counting its own and
-summed); every kernel of a path must have been launched, and (b),
+summed; phase 11, eager and graphed calls together); a replay counts
+the launches its graph holds, a capture none.  Every kernel of a path
+must have been launched, and (b),
 at cbs_level 2, must launch the rotate and no VP.  The comparisons with
-the plain versions are not counted.  The key cache of phases 4-9 lives in
-a temporary directory, removed at the end; phase 10's in one of its own.
+the plain versions are not counted.  The key cache of phases 4-11 lives
+in a temporary directory, removed at the end; phase 10's in one of its
+own.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits 1.
 Imports nothing of the JAX package.
@@ -194,8 +212,7 @@ def _max_abs_err(got, want) -> float:
 def _require_equal(got, want, what: str) -> float:
     import torch
     if not torch.equal(got, want):
-        raise AssertionError(f"{what}: kernel words differ from the plain "
-                             f"version")
+        raise AssertionError(f"{what}: the words differ")
     return _max_abs_err(got, want)
 
 
@@ -229,9 +246,11 @@ def _run_cli(cli, argv) -> tuple[str, float]:
     return buf.getvalue(), time.perf_counter() - t0
 
 
-def _profile_decrypt(server, rks, ct, n_blocks: int) -> None:
+def _profile_decrypt(server, rks, ct, n_blocks: int,
+                     phase: str = "phase 5", top: int = 8) -> float:
     """Where the time goes: one warm aes_decrypt under torch.profiler, the
-    device time of each kernel (self time, summed over launches)."""
+    device time of each kernel (self time, summed over launches).  Returns
+    the card's busy share, in percent."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,13 +265,14 @@ def _profile_decrypt(server, rks, ct, n_blocks: int) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and dev_ms(e) > 0]
     busy = sum(dev_ms(e) for e in kernels)
-    print(f"phase 5: profile of one warm aes_decrypt of {n_blocks} blocks: "
+    print(f"{phase}: profile of one warm aes_decrypt of {n_blocks} blocks: "
           f"wall {wall:.1f} ms, kernels {busy:.1f} ms on the card "
           f"({100 * busy / wall:.1f}% busy)")
     ranked = sorted(kernels, key=dev_ms, reverse=True)
-    for e in ranked[:8] + [e for e in ranked[8:] if "tfhe::" in e.key]:
-        print(f"phase 5:   {dev_ms(e):9.1f} ms {100 * dev_ms(e) / busy:5.1f}% "
+    for e in ranked[:top] + [e for e in ranked[top:] if "tfhe::" in e.key]:
+        print(f"{phase}:   {dev_ms(e):9.1f} ms {100 * dev_ms(e) / busy:5.1f}% "
               f"x{e.count:<6} {e.key[:70]}")
+    return 100 * busy / wall
 
 
 def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
@@ -755,6 +775,245 @@ def _cold_start_phase(wrappers) -> dict:
     return {path: counts}
 
 
+def _rotate_unit(keys, ct, test):
+    """One blind rotation (the kernel, on the card): phase 11's graphed
+    unit."""
+    from tfhe_aes_tpu_torch.ops import blind_rotate
+    return blind_rotate.blind_rotate(
+        keys.rplan, keys.params, keys.bsk_limbs, ct, test, keys.rfwd_limbs,
+        keys.fwd_full, keys.rinv_crt_limbs, keys.inv_crt_full,
+        keys.rot_table)
+
+
+@contextlib.contextmanager
+def _eager_wopbs():
+    """Every WoPBS of the circuits eager (the dispatch before graphs):
+    many_wopbs_jit swapped for many_wopbs while the block runs."""
+    from tfhe_aes_tpu_torch.ops import wopbs
+    jit = wopbs.many_wopbs_jit
+    wopbs.many_wopbs_jit = wopbs.many_wopbs
+    try:
+        yield
+    finally:
+        wopbs.many_wopbs_jit = jit
+
+
+# The kernel functions one launch-counted call runs: the rotate's per
+# step (K1, K2) and per call (the decomposition), the VP's per selector bit.
+ROTATE_NODES = ("br_forward_mac_kernel", "br_inverse_crt_kernel")
+ROTATE_ONCE = "br_decompose_kernel"
+VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
+            "vp_inverse_crt_kernel")
+
+
+def _check_graph_nodes(graph, p, nbits: int, what: str):
+    """The kernel nodes of a captured graph, by kernel, against what its
+    replays add to the launch counts (graph.held: rotate and VP calls):
+    a call of the rotate is one decomposition and n (the LWE dimension)
+    steps of K1 and K2, a call of VP one of each of its three kernels a
+    rotated selector bit, min(nbits, log2 N)."""
+    from tfhe_aes_tpu_torch.ops import graphs
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
+    rot, vp = graph.held
+    vp_bits = min(nbits, p.log2_poly_size)
+    want = {ROTATE_ONCE: rot,
+            **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
+            **{k: vp * vp_bits for k in VP_NODES}}
+    got = {k: sum(n for name, n in nodes.items() if k in name)
+           for k in want}
+    if got != want:
+        raise AssertionError(f"phase 11 {what}: the graph holds kernel "
+                             f"nodes {got}, its replays count {want}")
+    return sum(got.values())
+
+
+def _peak_gib() -> str:
+    """The peak device memory since the last reset, allocated (live
+    tensors) / reserved (with the allocator's cache and the graph pools,
+    whose intermediates no tensor holds between replays)."""
+    import torch
+    return (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} / "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+
+
+def _median_ms(fn, *args, runs: int = 3):
+    """(the last result, the median ms) of `runs` synchronised calls."""
+    times = []
+    for _ in range(runs):
+        out, ms = _timed(fn, *args)
+        times.append(ms)
+    return out, sorted(times)[runs // 2]
+
+
+def _graph_phase(dev, wrappers) -> dict:
+    """Phase 11: the compiled dispatch units (ops/graphs.py) on phase 7's
+    PARAM_TPU keys.  The staged key expansion graphed (first, warm) and
+    eager; every WoPBS shape the main path's graphs take, graphed against
+    eager word for word (the first call on the bytes reversed, so the
+    replays read new static inputs), each replay adding the launches its
+    graph holds; the rotate alone at 16 and 128 bits, eager and replayed;
+    a 4-block aes_decrypt eager and graphed, each profiled, back to the
+    plaintexts; peak memory of the 1024-byte rounds eager and graphed.
+    Every graph is captured keeping its CUDA graph, whose kernel nodes
+    are held against the launches its replays count.  Times are medians
+    of 3.  Returns the launch counts of the phase."""
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch.backend import numpy_backend as nb
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.ops import graphs, wopbs
+    from tfhe_aes_tpu_torch.params import PARAM_TPU
+    from tfhe_aes_tpu_torch.server import Server
+    from tfhe_aes_tpu_torch.utils import serialization, torus
+
+    torch.cuda.empty_cache()
+    p, U64 = PARAM_TPU, np.uint64
+    path = "graphed vs eager (phase 11)"
+    t_phase = time.perf_counter()
+    client = Client(p, seed=0)
+    client.sk, keys = serialization.load_keys(serialization.cache_path(p, 0))
+    keys = keys.to(dev)
+    server = Server(keys)
+    graphs.GRAPHS.cuda.keep = True          # for the graphs' DOT dumps
+    _reset_launches(wrappers)
+
+    # The staged key expansion: its one 16-byte graph captured in the
+    # first call, replayed in the rest; then every WoPBS eager.
+    enc_key = torus.from_u64(client.encrypt_u128(KEY), dev)
+    rks, first_ms = _timed(server.aes_key_expansion, enc_key)
+    rks_g, warm_ms = _median_ms(server.aes_key_expansion, enc_key)
+    with _eager_wopbs():
+        rks_e, eager_ms = _median_ms(server.aes_key_expansion, enc_key)
+    _require_equal(rks_g, rks_e, "staged key expansion, graphed vs eager")
+    _require_equal(rks, rks_e, "staged key expansion, first vs eager")
+    want_rk = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(KEY))
+    rk_host = torus.to_u64(rks_g)
+    if [[client.decrypt_byte(rk_host[r, i]) for i in range(16)]
+            for r in range(11)] != want_rk:
+        raise AssertionError("phase 11: the graphed key expansion is not AES")
+    print(f"phase 11: staged key expansion graphed: first {first_ms:.1f} ms "
+          f"(with the capture), warm {warm_ms:.1f} ms; eager {eager_ms:.1f} "
+          f"ms; == eager word for word, decrypts to the AES schedule")
+
+    def encrypted(n_bytes, nbits, seed):
+        rng = np.random.default_rng(seed)
+        vals = rng.integers(0, 1 << nbits, n_bytes)
+        bits = (vals[:, None] >> np.arange(nbits)) & 1
+        cts = nb.lwe_encrypt(client.sk.big_lwe_key,
+                             bits.astype(U64) << U64(63), p.glwe_noise_std,
+                             rng)
+        return torus.from_u64(cts, dev)
+
+    # The bench's batch: its ripple add (a byte a block) and AES rounds;
+    # its decrypt's rounds; the pk-RCON schedule's three WoPBS.
+    nb_, aes_bytes, dec_bytes = BENCH_BLOCKS, 16 * BENCH_BLOCKS, \
+        16 * BENCH_DECRYPT
+    lsb, rest = fhe_aes.add_scalar_luts(p, fhe_aes.counter_bytes(nb_, 0x1FE))
+    shapes = (
+        ("key expansion 16 B x 8 bits, L=16", 16, 8,
+         fhe_aes._refresh_sbox_lut(p)),
+        (f"ripple add {nb_} B x 8 bits, L=9", nb_, 8, lsb),
+        (f"ripple add {nb_} B x 9 bits, L=9", nb_, 9, rest[0]),
+        (f"AES round {aes_bytes} B, L=24", aes_bytes, 8, fhe_aes._fwd_luts(p)),
+        (f"final round {aes_bytes} B, L=8", aes_bytes, 8,
+         fhe_aes._sbox_lut(p, False)),
+        (f"decrypt {dec_bytes} B, L=8", dec_bytes, 8,
+         fhe_aes._sbox_lut(p, True)),
+        (f"decrypt {dec_bytes} B, L=32", dec_bytes, 8,
+         fhe_aes._inv_mul_luts(p)),
+        ("pk-RCON SubWord 4 B, L=8", 4, 8, fhe_aes._sbox_lut(p, False)),
+        ("pk-RCON refresh 12 B, L=8", 12, 8, fhe_aes._identity_lut(p)),
+        ("pk-RCON refresh 4 B, L=8 (the SubWord's graph)", 4, 8,
+         fhe_aes._identity_lut(p)))
+    rows = []
+    for i, (label, n_bytes, nbits, lut_np) in enumerate(shapes):
+        x, lut = encrypted(n_bytes, nbits, 100 + i), torus.from_u64(lut_np, dev)
+        big = n_bytes == aes_bytes
+        if big:
+            torch.cuda.reset_peak_memory_stats()
+        want, e_ms = _median_ms(wopbs.many_wopbs, keys, x, lut)
+        if big:
+            eager_peak = _peak_gib()
+            torch.cuda.empty_cache()        # the eager runs' cache
+            torch.cuda.reset_peak_memory_stats()
+        rev_lut = lut.flip(0) if lut.shape[0] > 1 else lut
+        first, f_ms = _timed(wopbs.many_wopbs_jit, keys, x.flip(0), rev_lut)
+        _require_equal(first.flip(0), want, f"phase 11 {label}: first call")
+        (graph,) = [g for k, g in graphs.GRAPHS.graphs(keys).items()
+                    if k[2][0][0] == tuple(x.shape)
+                    and k[2][1][0] == tuple(lut.shape)]
+        n_nodes = _check_graph_nodes(graph, p, nbits, label)
+        times = []
+        for _ in range(3):
+            got, ms = _timed(wopbs.many_wopbs_jit, keys, x, lut)
+            times.append(ms)
+            _require_equal(got, want, f"phase 11 {label}: replay")
+        g_ms = sorted(times)[1]
+        if big:
+            print(f"phase 11: {label}: peak device memory, allocated / "
+                  f"reserved: eager {eager_peak}, first graphed call and "
+                  f"replays {_peak_gib()}")
+        rows.append((label, e_ms, f_ms, g_ms, graph.held))
+        print(f"phase 11: {label}: replays == eager word for word; eager "
+              f"{e_ms:.1f} ms, first call {f_ms:.1f} ms (a byte eagerly, "
+              f"the capture, a replay), replay {g_ms:.1f} ms; launches a "
+              f"replay {dict(zip(wrappers, graph.held))}, {n_nodes} kernel "
+              f"nodes of theirs in the graph")
+        del x, lut, want, first, got
+
+    # The rotate alone: the latency-bound small batches.
+    for n_bits in (16, 128):
+        rng = np.random.default_rng(n_bits)
+        small = nb.lwe_encrypt(client.sk.lwe_key,
+                               rng.integers(0, 2, n_bits).astype(U64)
+                               << U64(63), p.lwe_noise_std, rng)
+        ct = torus.from_u64(small, dev)
+        test = torch.zeros((p.glwe_dimension + 1, p.polynomial_size),
+                           dtype=torch.int64, device=dev)
+        test[-1, :] = 1 << 60
+        want, e_ms = _median_ms(_rotate_unit, keys, ct, test)
+        graphs.GRAPHS(_rotate_unit, keys, (ct.flip(0), test))
+        (graph,) = [g for k, g in graphs.GRAPHS.graphs(keys).items()
+                    if k[0] is _rotate_unit and k[2][0][0] == tuple(ct.shape)]
+        _check_graph_nodes(graph, p, 0, f"rotate {n_bits} bits")
+        got, g_ms = _median_ms(graphs.GRAPHS, _rotate_unit, keys, (ct, test))
+        _require_equal(got, want, f"phase 11 rotate {n_bits} bits")
+        bound, _ = rotate_bound(p, keys.rplan, n_bits)
+        print(f"phase 11: rotate {n_bits} bits (1339 launches): eager "
+              f"{e_ms:.2f} ms, replayed {g_ms:.2f} ms, == word for word; "
+              f"bound {bound:.2f} ms")
+
+    # The 4-block decrypt, graphed (its two 64-byte graphs captured
+    # above) and eager, each profiled.
+    n = BENCH_DECRYPT
+    plains = [(IV + t) % (1 << 128) for t in range(n)]
+    state = torus.from_u64(np.stack([client.encrypt_u128(v)
+                                     for v in plains]), dev)
+    ct = server.aes_encrypt(rks_g, state)
+    back_g, dec_g_ms = _median_ms(server.aes_decrypt, rks_g, ct)
+    busy_g = _profile_decrypt(server, rks_g, ct, n, "phase 11", top=3)
+    with _eager_wopbs():
+        back_e, dec_e_ms = _median_ms(server.aes_decrypt, rks_g, ct)
+        busy_e = _profile_decrypt(server, rks_g, ct, n, "phase 11", top=3)
+    _require_equal(back_g, back_e, "phase 11 aes_decrypt graphed vs eager")
+    host = torus.to_u64(back_g)
+    if [client.decrypt_state_u128(host[i]) for i in range(n)] != plains:
+        raise AssertionError("phase 11: the graphed aes_decrypt does not give "
+                             "the plaintexts back")
+    print(f"phase 11: aes_decrypt {n} blocks graphed {dec_g_ms:.1f} ms "
+          f"({busy_g:.1f}% busy), eager {dec_e_ms:.1f} ms ({busy_e:.1f}% "
+          f"busy); == word for word, back to the plaintexts")
+    counts = _read_launches(wrappers, path)
+    graphs.GRAPHS.cuda.keep = False
+    print(f"phase 11: {graphs.GRAPHS.captures} captures and "
+          f"{graphs.GRAPHS.replays} replays in this process; whole phase "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    del server, keys, rks, rks_g, rks_e, ct, back_g, back_e, state
+    return {path: counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--blocks", type=int, default=4,
@@ -1110,8 +1369,8 @@ def main() -> int:
           f"{args.blocks}) {ctr2_ms / 1e3:.2f} s = "
           f"{args.blocks2 / (ctr2_ms / 6e4):.3f} blocks/min; all decrypt to "
           f"AES-128 CTR")
-    print(f"phase 3: launches {launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"phase 3: launches {launches}; peak device memory, allocated / "
+          f"reserved: {_peak_gib()}")
     del server, keys, ks1, ks2, rks
 
     cache_dir = tempfile.mkdtemp(prefix="tfhe_aes_smoke_keys_")
@@ -1126,15 +1385,16 @@ def main() -> int:
         paths.update(noise_paths)
         br_shapes += noise_shapes
         br_err = max(br_err, noise_err)
+        paths.update(_cold_start_phase(wrappers))
+        print("phase 10: temporary directory removed")
+        paths.update(_graph_phase(dev, wrappers))
     finally:
         if old_cache is None:
             os.environ.pop("TFHE_AES_TPU_CACHE", None)
         else:
             os.environ["TFHE_AES_TPU_CACHE"] = old_cache
         shutil.rmtree(cache_dir, ignore_errors=True)
-    print("phase 9: key cache directory removed")
-    paths.update(_cold_start_phase(wrappers))
-    print(f"phase 10: temporary directory removed; whole script "
+    print(f"phase 11: key cache directory removed; whole script "
           f"{time.perf_counter() - t_start:.0f} s")
 
     def launch_fields(name):

@@ -156,12 +156,13 @@ def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
     nvcc and builds no tile: the libraries are loaded and the real keys'
     constant leaves are the warm-up's, with their tiles."""
     from tfhe_aes_tpu_torch.models import fhe_aes
-    from tfhe_aes_tpu_torch.ops import cuda_build, keys as keys_mod
-    from tfhe_aes_tpu_torch.utils import warmup
+    from tfhe_aes_tpu_torch.ops import cuda_build, graphs
+    from tfhe_aes_tpu_torch.utils import device as device_mod, warmup
 
+    graphs.GRAPHS.clear()               # their graphs read the constants
     cuda_build._libs.clear()
     cuda_build._derived.clear()
-    keys_mod._constants.clear()
+    device_mod._constants.clear()
     warm = warmup.precompile(PARAM_TOY_VP, 1, device=dev)
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     report = warm.join()
@@ -190,3 +191,159 @@ def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
     assert cuda_blind_rotate.blind_rotate_cuda.launches > launches[0]
     assert cuda_vp.vp_rotations_cuda.launches > launches[1]
     assert tuple(rks.shape) == (11,) + tuple(enc_key.shape)
+
+
+@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_VP, PARAM_TOY_VP_K4],
+                         ids=lambda p: p.name)
+def test_graphed_wopbs_equals_eager_and_replays_count(dev, params):
+    """many_wopbs_jit: the first call captures, a replay on other inputs
+    gives the eager words, and adds the launches its graph holds (the
+    rotate once a cbs level; VP once at cbs_level 1, none at 2)."""
+    from tfhe_aes_tpu_torch.ops import graphs
+    client, k = _keys(params, 11, dev)
+    lut = torus.from_u64(luts.lut_polys_from_tables(
+        params, tables.sbox()[None], 8), dev)
+    runs = [torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]),
+                           dev) for vals in ((0x5A, 0x01, 0xFF),
+                                             (0x00, 0x80, 0x33))]
+    wrappers = graphs.kernel_counters()
+    first = wopbs.many_wopbs_jit(k, runs[0], lut)
+    (graph,) = graphs.GRAPHS.graphs(k).values()
+    assert graph.held == (params.cbs_level, int(params.cbs_level == 1))
+    counts = [w.launches for w in wrappers]
+    second = wopbs.many_wopbs_jit(k, runs[1], lut)
+    assert [w.launches - n for w, n in zip(wrappers, counts)] == \
+        list(graph.held)
+    again = wopbs.many_wopbs_jit(k, runs[0], lut)
+    torch.cuda.synchronize()
+    for cts, got in zip(runs + runs[:1], (first, second, again)):
+        assert torch.equal(got, wopbs.many_wopbs(k, cts, lut))
+    assert torch.equal(first, again)
+    out = torus.to_u64(second)
+    assert [client.decrypt_byte(out[i]) for i in range(3)] == \
+        [int(tables.sbox()[v]) for v in (0x00, 0x80, 0x33)]
+
+
+def test_graphed_key_expansions_equal_eager(dev, monkeypatch):
+    """The staged key expansion (11 replays of one graph) and the pk-RCON
+    schedule (two graphs, three shapes) against the same schedules with
+    every WoPBS eager, at a cbs_level=1 toy set."""
+    from tfhe_aes_tpu_torch.models import fhe_aes
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    enc_key = torus.from_u64(client.encrypt_u128(0x2B7E1516), dev)
+    rcon = torus.from_u64(client.make_public_key().encrypt_bits(
+        np.stack([np.array([(int(r) >> j) & 1 for j in range(8)], U64)
+                  for r in tables.RCON]), np.random.default_rng(3)), dev)
+    graphed = (fhe_aes.aes_key_expansion_staged(k, enc_key),
+               fhe_aes.aes_key_expansion(k, enc_key, rcon))
+    monkeypatch.setattr(wopbs, "many_wopbs_jit", wopbs.many_wopbs)
+    eager = (fhe_aes.aes_key_expansion(k, enc_key),
+             fhe_aes.aes_key_expansion(k, enc_key, rcon))
+    torch.cuda.synchronize()
+    for got, want in zip(graphed, eager):
+        assert torch.equal(got, want)
+
+
+def test_a_capture_after_every_graph_died_opens_a_new_pool(dev):
+    """Once the key sets of every graph of a device's pool are gone,
+    PyTorch releases the pool; the next capture must not reuse its
+    handle."""
+    import gc
+    from tfhe_aes_tpu_torch.ops import graphs
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    lut = torus.from_u64(luts.lut_polys_from_tables(
+        PARAM_TOY_VP, tables.sbox()[None], 8), dev)
+    cts = torus.from_u64(np.stack([client.encrypt_byte(0x42)]), dev)
+    want = wopbs.many_wopbs(k, cts, lut)
+    for _ in range(2):
+        graphs.GRAPHS.clear()
+        gc.collect()
+        fresh = k.to(dev)                   # another owner, the same leaves
+        wopbs.many_wopbs_jit(fresh, cts, lut)
+        got = wopbs.many_wopbs_jit(fresh, cts, lut)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        del fresh, got
+
+
+def _big_unit(owner, x):
+    """A unit whose intermediate takes 1 GiB, whatever its input's shape."""
+    tmp = torch.ones(1 << 30, dtype=torch.uint8, device=x.device)
+    return x + tmp[:x.numel()].sum()
+
+
+def _small_warm(owner, x):
+    """A warm-up call with nothing to prepare."""
+    return x + 1
+
+
+def test_a_new_shapes_first_call_reuses_the_graph_pool(dev):
+    """Beside a graph whose intermediates the pool holds between replays,
+    a new shape's first call (a small warm-up, its capture and its first
+    replay) takes that memory again instead of as much beside it."""
+    from tfhe_aes_tpu_torch.ops import graphs
+    class Owner:
+        """A stand-in for a key set."""
+    cache, owner = graphs.GraphCache(counters=lambda: ()), Owner()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    for n in (16, 32):
+        x = torch.zeros(n, dtype=torch.int64, device=dev)
+        for _ in range(2):
+            assert torch.equal(cache(_big_unit, owner, (x,),
+                                     warm=_small_warm), x + n)
+    torch.cuda.synchronize()
+    assert cache.captures == 2 and cache.replays == 4
+    grew = torch.cuda.max_memory_reserved() - base
+    assert (1 << 30) <= grew < (3 << 29), grew / 2**30
+
+
+def test_an_earlier_eager_run_does_not_change_the_chunk_cap(dev):
+    """The WoPBS chunk cap counts the allocator's cached blocks as
+    available: an eager run that leaves a quarter of the card cached does
+    not change it, so a graph captured after it cuts the eager chunks."""
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    many = 1 << 40                      # bytes: the memory decides
+    torch.cuda.synchronize()
+    before = wopbs.chunk_bytes(k, many, 24, 8)
+    free, total = torch.cuda.mem_get_info(dev)
+    tmp = torch.ones(total // 4, dtype=torch.uint8, device=dev)
+    del tmp
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved(dev) - \
+        torch.cuda.memory_allocated(dev) >= total // 4
+    after = wopbs.chunk_bytes(k, many, 24, 8)
+    torch.cuda.empty_cache()
+    assert abs(after - before) <= before // 100, (before, after)
+
+
+@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_VP],
+                         ids=lambda p: p.name)
+def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
+                                                          monkeypatch,
+                                                          tmp_path):
+    """The kernel nodes of a captured WoPBS (its DOT dump) are the
+    launches its replays add: a decomposition and n steps of K1 and K2 a
+    rotate call, three VP kernels a rotated selector bit (min(8, log2 N))
+    a VP call."""
+    from tfhe_aes_tpu_torch.ops import graphs
+    monkeypatch.setattr(graphs.GRAPHS.cuda, "keep", True)
+    client, k = _keys(params, 11, dev)
+    lut = torus.from_u64(luts.lut_polys_from_tables(
+        params, tables.sbox()[None], 8), dev)
+    cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in (7, 9)]),
+                         dev)
+    wopbs.many_wopbs_jit(k, cts, lut)
+    (graph,) = graphs.GRAPHS.graphs(k).values()
+    nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
+    rot, vp = graph.held
+    n, bits = params.lwe_dimension, min(8, params.log2_poly_size)
+    want = {"br_decompose_kernel": rot, "br_forward_mac_kernel": n * rot,
+            "br_inverse_crt_kernel": n * rot, "vp_digits_kernel": bits * vp,
+            "vp_forward_mac_kernel": bits * vp,
+            "vp_inverse_crt_kernel": bits * vp}
+    assert {name: sum(c for f, c in nodes.items() if name in f)
+            for name in want} == want
+    assert rot == params.cbs_level and vp == int(params.cbs_level == 1)

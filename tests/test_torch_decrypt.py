@@ -71,7 +71,9 @@ def test_aes_decrypt_equals_jax_and_decrypts(ctx):
 @pytest.mark.parametrize("params", ALL_PARAMS, ids=lambda p: p.name)
 def test_noise_audit_equals_jax(params):
     got = noise.audit_all(params)
+    staged = got.pop("key_expansion_staged")     # the port's server's
     assert got == jnoise.audit_all(params)
+    assert staged == got["key_expansion"]
     assert got["decrypt"]["wopbs_in"] <= params.max_noise_level
     assert got["key_expansion_pk"]["wopbs_in"] == 5
 

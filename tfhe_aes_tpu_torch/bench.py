@@ -131,8 +131,12 @@ def _measure(client, server, params, blocks, repeats, decrypt, skip_verify,
     log(f"# steady-state: {t_batch:.2f}s/batch, "
         f"{blocks / t_batch * pbs_per_block:.0f} PBS/s")
     if device.type == "cuda":
+        # Reserved counts the memory a graph's pool holds between replays,
+        # which allocated (live tensors) does not.
         log(f"# peak device memory: "
-            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+            f"(reserved {torch.cuda.max_memory_reserved(device) / 2**30:.2f}"
+            f" GiB)")
     record = {
         "metric": "aes128_ctr_blocks_per_min",
         "value": round(blocks_per_min, 3),

@@ -443,12 +443,8 @@ extern "C" int tfhe_blind_rotate(
   const size_t smem2 = sm90::Ring<kBN2, kStages2>::kBytes +
                        (size_t)n_primes * kRowsA * kCols2 * 2 +
                        (size_t)kRowsA * kCols2 * 8 + 2 * kStages2 * 8;
-  TFHE_CHECK(cudaFuncSetAttribute(k1,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem1));
-  TFHE_CHECK(cudaFuncSetAttribute(br_inverse_crt_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem2));
+  TFHE_CHECK(raise_smem_limit((const void*)k1, smem1));
+  TFHE_CHECK(raise_smem_limit((const void*)br_inverse_crt_kernel, smem2));
   const dim3 grid1(s.PN / kCols1, s.rows1 / kRowsA);
   const dim3 grid2(N / kCols2, s.rows2 / kRowsA);
 

@@ -7,6 +7,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace tfhe {
 
 constexpr int kMaxPrimes = 6;
@@ -97,3 +101,28 @@ __device__ __forceinline__ unsigned long long crt_word(const RnsConsts& c,
     const cudaError_t e_ = (call);         \
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
+
+namespace tfhe {
+
+// Raises kernel fn's dynamic shared-memory limit on the current device to
+// at least `bytes`, and never lowers it.  A call that needs no more than
+// an earlier one makes no runtime call at all: so the first (eager) run of
+// a shape sets the limit before its CUDA graph is captured (ops/graphs.py),
+// and no later call of a smaller shape can lower the limit under a graph
+// captured with a larger one.
+inline cudaError_t raise_smem_limit(const void* fn, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> limits;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = limits[{dev, fn}];
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t set = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (set == cudaSuccess) have = bytes;
+  return set;
+}
+
+}  // namespace tfhe

@@ -461,12 +461,8 @@ extern "C" int tfhe_vp_rotations(
                        (size_t)n_primes * kRowsA * kCols2 * 2 +
                        2 * kStages2 * 8;
   if (smem1 > kSmemTwoBlocks) return (int)cudaErrorInvalidValue;
-  TFHE_CHECK(cudaFuncSetAttribute(v1,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem1));
-  TFHE_CHECK(cudaFuncSetAttribute(vp_inverse_crt_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem2));
+  TFHE_CHECK(raise_smem_limit((const void*)v1, smem1));
+  TFHE_CHECK(raise_smem_limit((const void*)vp_inverse_crt_kernel, smem2));
   const dim3 grid1(s.PN / kCols1, s.rows1 / kRowsA);
   const dim3 grid2(N / kCols2, s.rows2 / kRowsA);
   const long long quads = (long long)s.accs * kp1 * N / 4;

@@ -1,10 +1,15 @@
-"""FHE AES-128 (CTR) on the batched WoPBS layer (torch, eager).
+"""FHE AES-128 (CTR) on the batched WoPBS layer (torch).
 
 Counterpart of the main path of tfhe_aes_tpu/models/fhe_aes.py: the state
 is [B, 16, 8, big+1] u64 words (B CTR blocks, 16 bytes column-major, 8
 one-bit blocks per byte LSB first).  XOR is word addition; all
 nonlinearity runs through many-LUT WoPBS with the GF(2^8) multiples fused
-into the S-box LUTs.  Rounds and ripple-carry steps are Python loops.
+into the S-box LUTs.  Rounds and ripple-carry steps are Python loops; each
+WoPBS goes through wopbs.many_wopbs_jit, as the JAX circuits' go through
+their jitted WoPBS: on a card, the replay of a graph captured once per key
+set and shape (ops/graphs.py).  The LUT stacks, RCON encodings and gather
+indices are tensors made once a device (utils/device.constant), so no
+call copies a constant to the card.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.distributed as dist
 from . import aes_plain, luts, tables
 from ..ops import wopbs
 from ..ops.keys import DeviceKeys
+from ..utils import device as device_mod
 from ..utils import torus
 
 # Column-major ShiftRows permutation: new[i] = old[SHIFT[i]].
@@ -87,8 +93,18 @@ def _refresh_sbox_lut(params) -> np.ndarray:
         params, np.stack([np.arange(256, dtype=np.uint64), tables.sbox()]), 8)
 
 
-def _on(lut: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torus.from_u64(lut, device=like.device)
+def _on(like: torch.Tensor, make, params, *args) -> torch.Tensor:
+    """The host table make(params, *args) (u64 words) on like's device,
+    made once there."""
+    return device_mod.constant(
+        ("fhe_aes table", make, params) + args, like.device,
+        lambda dev: torus.from_u64(make(params, *args), dev))
+
+
+def _index(like: torch.Tensor, idx: tuple) -> torch.Tensor:
+    """A gather index on like's device, made once there."""
+    return device_mod.constant(("fhe_aes index", idx), like.device,
+                               lambda dev: torch.tensor(idx, device=dev))
 
 
 def add_round_key(state, rk):
@@ -97,11 +113,11 @@ def add_round_key(state, rk):
 
 
 def shift_rows(state):
-    return state[:, list(SHIFT)]
+    return state[:, _index(state, SHIFT)]
 
 
 def inv_shift_rows(state):
-    return state[:, list(INV_SHIFT)]
+    return state[:, _index(state, INV_SHIFT)]
 
 
 def _byte_wopbs(keys: DeviceKeys, state, lut, byte_group=None):
@@ -122,17 +138,17 @@ def _byte_wopbs(keys: DeviceKeys, state, lut, byte_group=None):
         dist.all_gather(parts, mine.contiguous(), group=byte_group)
         return torch.cat(parts, dim=1)
     B, nb = state.shape[:2]
-    out = wopbs.many_wopbs(keys, state.reshape((B * nb,) + state.shape[2:]),
-                           lut)
+    out = wopbs.many_wopbs_jit(
+        keys, state.reshape((B * nb,) + state.shape[2:]), lut)
     return out.reshape((B, nb) + out.shape[1:])
 
 
 def _mix(mul_state, var_table):
     """mul_state [B,16,V,8,big+1] -> state [B,16,8,big+1] via 4-term sums."""
-    byte_idx, var_idx = _mix_indices(var_table)
-    dev = mul_state.device
-    gathered = mul_state[:, torch.as_tensor(byte_idx, device=dev),
-                         torch.as_tensor(var_idx, device=dev)]
+    byte_idx, var_idx = (
+        _index(mul_state, tuple(map(tuple, t.tolist())))
+        for t in _mix_indices(var_table))
+    gathered = mul_state[:, byte_idx, var_idx]
     return gathered.sum(dim=2)
 
 
@@ -142,13 +158,13 @@ def aes_encrypt(keys: DeviceKeys, round_keys, state, *, byte_group=None):
     axis (see _byte_wopbs); every rank of the group gets the whole state
     back before ShiftRows and MixColumns."""
     p = keys.params
-    fwd_l = _on(_fwd_luts(p), state)
+    fwd_l = _on(state, _fwd_luts, p)
     state = add_round_key(state, round_keys[0])
     for rnd in range(1, 10):
         mul = _byte_wopbs(keys, state, fwd_l, byte_group)  # [B,16,24,big+1]
         mul = mul.reshape(mul.shape[:2] + (3, 8) + mul.shape[3:])
         state = add_round_key(_mix(shift_rows(mul), _MC_VAR), round_keys[rnd])
-    out = _byte_wopbs(keys, state, _on(_sbox_lut(p, False), state),
+    out = _byte_wopbs(keys, state, _on(state, _sbox_lut, p, False),
                       byte_group)
     return add_round_key(shift_rows(out), round_keys[10])
 
@@ -160,8 +176,8 @@ def aes_decrypt(keys: DeviceKeys, round_keys, state):
     nonlinear passes, so a round costs two WoPBS where encryption's costs
     one."""
     p = keys.params
-    inv_sbox_l = _on(_sbox_lut(p, True), state)
-    inv_mul_l = _on(_inv_mul_luts(p), state)
+    inv_sbox_l = _on(state, _sbox_lut, p, True)
+    inv_mul_l = _on(state, _inv_mul_luts, p)
     state = add_round_key(state, round_keys[10])
     for rnd in range(10, 1, -1):
         st = _byte_wopbs(keys, inv_shift_rows(state), inv_sbox_l)
@@ -209,41 +225,76 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
     n3 at 6, so n0..n2 (3, 4, 5) are refreshed first and n3 = w3 + n2'
     (2) by a third WoPBS, after the SubWord's own.
 
-    The trivial schedule gives the words of the JAX package's
-    aes_key_expansion_staged (which exists there only to compile one
-    WoPBS shape); its prologue WoPBS takes just the 4 RotWord bytes.
+    The trivial schedule gives the words of aes_key_expansion_staged,
+    whose prologue WoPBS runs on all 16 bytes to share the rounds' shape;
+    this one's takes just the 4 RotWord bytes.  With pk-RCON the three
+    WoPBS of a round take 4, 12 and 4 bytes: three shapes, two graphs
+    (the 4-byte S-box and identity stacks are one shape), replayed over
+    the 10 rounds.
     """
     p = keys.params
     if rcon_fresh is None:
         rcon_fresh = rcon_cts is not None
     if rcon_cts is None:
-        rcon_cts = _on(trivial_rcon(p), enc_key)
-    sbox_l = _on(_sbox_lut(p, False), enc_key)
+        rcon_cts = _on(enc_key, trivial_rcon, p)
+    sbox_l = _on(enc_key, _sbox_lut, p, False)
+    rot_word = _index(enc_key, (1, 2, 3, 0))
     rk = enc_key
     rks = [enc_key]
     if rcon_fresh:
-        ident = _on(_identity_lut(p), enc_key)
+        ident = _on(enc_key, _identity_lut, p)
         for r in range(10):
             w = rk.reshape(4, 4, 8, rk.shape[-1])
-            temp = wopbs.many_wopbs(keys, w[3][[1, 2, 3, 0]], sbox_l)
+            temp = wopbs.many_wopbs_jit(keys, w[3][rot_word], sbox_l)
             temp[0] += rcon_cts[r]                       # level 2
             n0 = w[0] + temp                             # 3 (byte 0)
             n1 = w[1] + n0                               # 4
             n2 = w[2] + n1                               # 5 = budget
-            fresh = wopbs.many_wopbs(keys, torch.cat([n0, n1, n2]), ident)
-            n3 = wopbs.many_wopbs(keys, w[3] + fresh[8:12], ident)
+            fresh = wopbs.many_wopbs_jit(keys, torch.cat([n0, n1, n2]), ident)
+            n3 = wopbs.many_wopbs_jit(keys, w[3] + fresh[8:12], ident)
             rk = torch.cat([fresh, n3])
             rks.append(rk)
     else:
-        refresh_sbox_l = _on(_refresh_sbox_lut(p), enc_key)
         w3 = rk.reshape(4, 4, 8, rk.shape[-1])[3]
-        sub = wopbs.many_wopbs(keys, w3[[1, 2, 3, 0]], sbox_l)
-        for r in range(10):
-            out = wopbs.many_wopbs(keys, _expand_glue(rk, sub, rcon_cts[r]),
+        sub = wopbs.many_wopbs_jit(keys, w3[rot_word], sbox_l)
+        rks += _expand_rounds(keys, rk, sub, rcon_cts)
+    return torch.stack(rks)
+
+
+def _expand_rounds(keys: DeviceKeys, rk, sub, rcon_cts) -> list:
+    """The 10 trivial-RCON rounds from round key 0 and its SubWord: one
+    16-byte {identity, S-box} WoPBS a round."""
+    refresh_sbox_l = _on(rk, _refresh_sbox_lut, keys.params)
+    last_word = _index(rk, (13, 14, 15, 12))
+    rks = []
+    for r in range(10):
+        out = wopbs.many_wopbs_jit(keys, _expand_glue(rk, sub, rcon_cts[r]),
                                    refresh_sbox_l)
-            rk = out[:, :8]
-            sub = out[[13, 14, 15, 12], 8:]
-            rks.append(rk)
+        rk = out[:, :8]
+        sub = out[last_word, 8:]
+        rks.append(rk)
+    return rks
+
+
+def aes_key_expansion_staged(keys: DeviceKeys, enc_key):
+    """Trivial-RCON key expansion as 11 dispatches of ONE WoPBS shape:
+    the port of tfhe_aes_tpu/models/fhe_aes.aes_key_expansion_staged, the
+    words of aes_key_expansion(rcon_cts=None).
+
+    The prologue SubWord is padded from 4 to 16 bytes, the rounds' shape:
+    it runs on the whole input key reordered as [0..11, 13, 14, 15, 12],
+    with the rounds' {identity, S-box} stack, and keeps outputs [12:16,
+    8:], the S-box of RotWord(w3).  So all 11 WoPBS replay one captured
+    graph (ops/graphs.py), at the cost of one 128-bit rotate in place of
+    a 32-bit one in the prologue.
+    """
+    p = keys.params
+    refresh_sbox_l = _on(enc_key, _refresh_sbox_lut, p)
+    order = _index(enc_key, tuple(range(12)) + (13, 14, 15, 12))
+    out = wopbs.many_wopbs_jit(keys, enc_key[order], refresh_sbox_l)
+    sub = out[12:16, 8:]
+    rks = [enc_key] + _expand_rounds(keys, enc_key, sub,
+                                     _on(enc_key, trivial_rcon, p))
     return torch.stack(rks)
 
 
@@ -277,15 +328,16 @@ def add_scalar_luts(params, i_bytes: np.ndarray):
 
 def add_scalar_device(keys: DeviceKeys, state, lut_lsb, luts_rest):
     """Ripple-carry add: state [B,16,8,big+1] += counters, 16 sequential
-    9-bit many-LUT WoPBS steps (exact per-byte carry)."""
+    many-LUT WoPBS steps (exact per-byte carry): the 8-bit first step, then
+    15 of one 9-bit shape."""
     state = state.clone()
-    out = wopbs.many_wopbs(keys, state[:, 15], lut_lsb)
+    out = wopbs.many_wopbs_jit(keys, state[:, 15], lut_lsb)
     state[:, 15] = out[:, :8]
     carry = out[:, 8:9]
     for step in range(15):
         idx = 14 - step
         bits9 = torch.cat([state[:, idx], carry], dim=1)
-        out = wopbs.many_wopbs(keys, bits9, luts_rest[step])
+        out = wopbs.many_wopbs_jit(keys, bits9, luts_rest[step])
         state[:, idx] = out[:, :8]
         carry = out[:, 8:9]
     return state
@@ -294,8 +346,9 @@ def add_scalar_device(keys: DeviceKeys, state, lut_lsb, luts_rest):
 def add_scalar(keys: DeviceKeys, state, i_bytes: np.ndarray):
     """Build the LUTs on the host, run the ripple add on state's device."""
     lut_lsb, luts_rest = add_scalar_luts(keys.params, i_bytes)
-    return add_scalar_device(keys, state, _on(lut_lsb, state),
-                             _on(luts_rest, state))
+    return add_scalar_device(keys, state,
+                             torus.from_u64(lut_lsb, state.device),
+                             torus.from_u64(luts_rest, state.device))
 
 
 def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
@@ -318,7 +371,8 @@ def ctr_keystream(keys: DeviceKeys, round_keys, enc_iv, n_blocks: int,
     wrap-padded with the first blocks.  Both give the same words."""
     lut_lsb, luts_rest = add_scalar_luts(keys.params,
                                          counter_bytes(n_blocks, offset))
-    lut_lsb, luts_rest = _on(lut_lsb, enc_iv), _on(luts_rest, enc_iv)
+    lut_lsb, luts_rest = (torus.from_u64(t, enc_iv.device)
+                          for t in (lut_lsb, luts_rest))
     if block_chunk is None or n_blocks <= block_chunk:
         return ctr_step(keys, round_keys, enc_iv, lut_lsb, luts_rest)
     state = enc_iv[None].expand((n_blocks,) + enc_iv.shape)

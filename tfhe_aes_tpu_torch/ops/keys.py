@@ -13,7 +13,6 @@ key set there (``constant_leaves``), so the kernels' tiles of them
 from __future__ import annotations
 
 import dataclasses
-import threading
 
 import numpy as np
 import torch
@@ -267,35 +266,17 @@ def host_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet) -> dict:
         vp_inv_full=ntt.inv_crt_full_host(plan))
 
 
-_constants: dict[tuple, dict] = {}
-_constants_lock = threading.Lock()
-
-
-def _canonical(device) -> torch.device:
-    """`device` with its index: "cuda" and "cuda:0" name one card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def constant_leaves(plan: ntt.NttPlan, rplan: ntt.NttPlan, p: ParamSet,
                     device) -> dict:
     """The CONSTANT_LEAVES as tensors on `device`, made once per (plans,
-    BSK base log, device) and shared by every key set there.  A card's
-    leaves are complete before they are published: a reader on another
-    stream than the maker's needs no wait.  Never written."""
-    dev = _canonical(device)
-    key = (plan, rplan, p.pbs_base_log, dev)
-    with _constants_lock:
-        made = _constants.get(key)
-        if made is None:
-            made = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-                    for name, arr in host_leaves(plan, rplan, p).items()}
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-            _constants[key] = made
-    return dict(made)
+    BSK base log, device) and shared by every key set there
+    (utils/device.constant: a card's leaves are complete before they are
+    published, so a reader on another stream than the maker's needs no
+    wait).  Never written."""
+    return dict(device_mod.constant(
+        ("constant leaves", plan, rplan, p.pbs_base_log), device,
+        lambda dev: {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+                     for name, arr in host_leaves(plan, rplan, p).items()}))
 
 
 def device_keys_shapes(params: ParamSet, device=None) -> DeviceKeys:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import crt, torus
+from ..utils import device as device_mod
 from . import modular
 
 I32 = torch.int32
@@ -303,15 +304,22 @@ def ntt_fwd_residues(plan: NttPlan, res: torch.Tensor,
         split2(res[k]), fwd_limbs, k, p, ip))
 
 
+def prime_constants(plan: NttPlan, device) -> tuple:
+    """(p, 1/p, balanced 2^16 mod p) of each prime, [P] tensors made once
+    per (plan, device) (utils/device.constant)."""
+    return device_mod.constant(("ntt primes", plan), device, lambda dev: (
+        torch.as_tensor(plan.p_i32, device=dev),
+        torch.as_tensor(plan.inv_f32, device=dev),
+        torch.as_tensor(np.stack([
+            modular.host_balanced(1 << 16, int(q)) for q in plan.primes]
+        ).astype(np.int32), device=dev)))
+
+
 def _prime_consts(plan: NttPlan, rank: int, device):
-    """Per-prime constants shaped [P, 1, 1, ...] for broadcasting."""
+    """Per-prime constants shaped [P, 1, 1, ...] for broadcasting (views of
+    prime_constants)."""
     sh = (plan.n_primes,) + (1,) * (rank - 1)
-    p = torch.as_tensor(plan.p_i32, device=device).reshape(sh)
-    inv = torch.as_tensor(plan.inv_f32, device=device).reshape(sh)
-    c16 = torch.as_tensor(np.stack([
-        modular.host_balanced(1 << 16, int(q)) for q in plan.primes]
-    ).astype(np.int32), device=device).reshape(sh)
-    return p, inv, c16
+    return tuple(t.reshape(sh) for t in prime_constants(plan, device))
 
 
 def _combine_limb_dots(plan: NttPlan, s_ll, s_mid, s_hh) -> torch.Tensor:
@@ -445,6 +453,7 @@ def u64_to_residues(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
         limbs.append((t - (c << 8)).to(I32))
         carry = c
     lim = torch.stack(limbs, dim=-1)                      # int32 [..., 8]
-    pow2 = torch.as_tensor(plan.pow2_8i, device=x.device)
+    pow2 = device_mod.constant(("ntt pow2", plan), x.device, lambda dev:
+                               torch.as_tensor(plan.pow2_8i, device=dev))
     return _per_prime(plan, lambda k, p, ip: modular.barrett_reduce(
         (lim * pow2[k]).sum(dim=-1, dtype=I32), p, ip))

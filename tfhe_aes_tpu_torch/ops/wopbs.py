@@ -3,7 +3,10 @@
 Counterpart of tfhe_aes_tpu/ops/wopbs.py.  The circuit-bootstrap blind
 rotates run at the full bit batch; the packing-keyswitch / NTT-staging /
 vertical-packing tail runs over balanced byte chunks in a Python loop,
-capped by the device's free memory.
+capped by the memory the device can give.  ``many_wopbs`` runs it eagerly;
+``many_wopbs_jit``, the counterpart of the JAX package's jitted entry
+point, replays a CUDA graph captured once per key set and shape
+(ops/graphs.py).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 
 from ..utils import noise_asserts
 from . import cbs as cbs_mod
-from . import keyswitch, vertical_packing
+from . import graphs, keyswitch, vertical_packing
 from .keys import DeviceKeys
 
 
@@ -35,7 +38,14 @@ def _stage_and_pack(keys: DeviceKeys, bigs: torch.Tensor, nbytes: int,
 def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
                 nbits: int) -> int:
     """Bytes per WoPBS tail chunk: everything on the CPU; on a card, as
-    many as fit half of its free memory by a per-byte working-set bound."""
+    many as fit a third of what it can give this process by a per-byte
+    working-set bound.  That is its free memory and the allocator's free
+    blocks (its cache, and the graph pools' intermediates, which a replay
+    holds only while it runs): what the live tensors leave, whatever
+    earlier runs left cached, so a graph's cap is the eager call's.  A
+    third, as half of the free memory was while the cache held a WoPBS's
+    intermediates: the graphs' pool and the eager work between WoPBS each
+    keep their own cache."""
     if keys.device.type != "cuda":
         return n_bytes
     p = keys.params
@@ -47,7 +57,9 @@ def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
     vp_bytes = n_luts * kp1 * n * 2 * (24 + 4 + 2 * keys.plan.n_primes)
     per_byte = 160 * ggsw_words + vp_bytes             # bytes, generous
     free, _ = torch.cuda.mem_get_info(keys.device)
-    return max(1, min(n_bytes, free // 2 // per_byte))
+    free += (torch.cuda.memory_reserved(keys.device)
+             - torch.cuda.memory_allocated(keys.device))
+    return max(1, min(n_bytes, free // 3 // per_byte))
 
 
 def _chunk_size(b: int, target: int) -> int:
@@ -58,6 +70,49 @@ def _chunk_size(b: int, target: int) -> int:
         return b
     nc = -(-b // target)
     return -(-b // nc)
+
+
+def _check_input(byte_bits_big: torch.Tensor, *_) -> None:
+    """The armed noise check of a WoPBS input (the LUT stack, which the
+    graph cache also passes, is not checked)."""
+    if noise_asserts.enabled():
+        noise_asserts.check_big_lwe("wopbs_input", byte_bits_big, "input")
+
+
+def _check_output(out: torch.Tensor) -> None:
+    """The armed noise check of a WoPBS output."""
+    if noise_asserts.enabled():
+        noise_asserts.check_big_lwe("wopbs_output", out, "fresh")
+
+
+def _many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
+                lut_polys: torch.Tensor, cap: int) -> torch.Tensor:
+    """many_wopbs under a resolved chunk cap, without the noise checks:
+    on the card, every op is a device op (no host copy, no sync), so the
+    whole of it can be captured when the keys have no contraction
+    shard."""
+    B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
+    small = extract_bits(keys, byte_bits_big)
+    bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
+    lev, np1 = bigs.shape[0], bigs.shape[-1]
+    bigs = bigs.reshape(lev, B, nbits, np1)
+    bc = _chunk_size(B, cap)
+    outs = []
+    for lo in range(0, B, bc):
+        hi = min(B, lo + bc)
+        luts = lut_polys if lut_polys.shape[0] == 1 else lut_polys[lo:hi]
+        outs.append(_stage_and_pack(
+            keys, bigs[:, lo:hi].reshape(lev, (hi - lo) * nbits, np1),
+            hi - lo, nbits, luts))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _one_byte(keys: DeviceKeys, byte_bits_big: torch.Tensor,
+              lut_polys: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first byte of a call, run eagerly before its capture: it builds
+    what a capture cannot (the kernel libraries, their tiles, cuBLAS's
+    handles) with a byte's memory, not the call's."""
+    return _many_wopbs(keys, byte_bits_big[:1], lut_polys[:1], cap)
 
 
 def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
@@ -76,25 +131,46 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     When utils/noise_asserts is armed, the input and the output are
     checked against the noise model.
     """
-    if noise_asserts.enabled():
-        noise_asserts.check_big_lwe("wopbs_input", byte_bits_big, "input")
+    _check_input(byte_bits_big)
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
-    small = extract_bits(keys, byte_bits_big)
-    bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
-    lev, np1 = bigs.shape[0], bigs.shape[-1]
-    bigs = bigs.reshape(lev, B, nbits, np1)
     cap = vp_chunk or chunk_bytes(keys, B, lut_polys.shape[1], nbits)
     if keys.shard is not None:
         cap = keys.shard.agree_min(cap, byte_bits_big.device)
-    bc = _chunk_size(B, cap)
-    outs = []
-    for lo in range(0, B, bc):
-        hi = min(B, lo + bc)
-        luts = lut_polys if lut_polys.shape[0] == 1 else lut_polys[lo:hi]
-        outs.append(_stage_and_pack(
-            keys, bigs[:, lo:hi].reshape(lev, (hi - lo) * nbits, np1),
-            hi - lo, nbits, luts))
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    if noise_asserts.enabled():
-        noise_asserts.check_big_lwe("wopbs_output", out, "fresh")
+    out = _many_wopbs(keys, byte_bits_big, lut_polys, cap)
+    _check_output(out)
     return out
+
+
+def many_wopbs_jit(keys: DeviceKeys, byte_bits_big: torch.Tensor,
+                   lut_polys: torch.Tensor, *,
+                   vp_chunk: int | None = None) -> torch.Tensor:
+    """many_wopbs as a compiled dispatch unit: the counterpart of
+    tfhe_aes_tpu/ops/wopbs.many_wopbs_jit, compiled there once per (key
+    shapes, batch, LUT stack) and reused across AES rounds, key-expansion
+    words and CTR ripple steps.
+
+    On CUDA tensors the first call of a key set and shape runs its first
+    byte eagerly, captures a CUDA graph and replays it; later calls replay
+    it (graphs.GRAPHS).  The chunk cap is decided at that first call
+    (vp_chunk, else chunk_bytes from the memory the live tensors leave
+    then) and is part of the graph's key, as vp_chunk is a static argument
+    in JAX: no replay reads the free memory.  The
+    same words as many_wopbs; the same noise checks when utils/
+    noise_asserts is armed, on the static input before a replay and on
+    the output after it, one of each a call, as in the eager run.
+    CPU tensors run eagerly.  Keys with a contraction shard run eagerly
+    too (many_wopbs): their ranks agree on the cap with an all-reduce and
+    a host read, and sum their products with gloo or NCCL collectives,
+    none of which a graph captures here.
+    """
+    if keys.shard is not None:
+        return many_wopbs(keys, byte_bits_big, lut_polys, vp_chunk=vp_chunk)
+    B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
+    n_luts = lut_polys.shape[1]
+    cap = graphs.GRAPHS.memo(
+        keys, ("wopbs chunk cap", B, n_luts, nbits, vp_chunk,
+               byte_bits_big.device),
+        lambda: vp_chunk or chunk_bytes(keys, B, n_luts, nbits))
+    return graphs.GRAPHS(_many_wopbs, keys, (byte_bits_big, lut_polys),
+                         (cap,), warm=_one_byte, before=_check_input,
+                         after=_check_output)

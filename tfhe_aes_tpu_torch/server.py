@@ -37,11 +37,13 @@ class Server:
     def aes_key_expansion(self, enc_key, *, pk_rcon: bool = False):
         """enc_key [16, 8, big+1] -> round keys [11, 16, 8, big+1].
 
-        pk_rcon=False: trivial RCON, one WoPBS per round.
+        pk_rcon=False: trivial RCON, one WoPBS per round, through
+        fhe_aes.aes_key_expansion_staged (all 11 WoPBS one shape, one
+        captured graph), as the JAX server dispatches it.
         pk_rcon=True: RCON encrypted by this server, three per round."""
-        rcon = None
-        if pk_rcon:
-            rcon = torus.from_u64(self.encrypt_rcon(), enc_key.device)
+        if not pk_rcon:
+            return fhe_aes.aes_key_expansion_staged(self.dkeys, enc_key)
+        rcon = torus.from_u64(self.encrypt_rcon(), enc_key.device)
         return fhe_aes.aes_key_expansion(self.dkeys, enc_key, rcon)
 
     def aes_encrypt(self, round_keys, state):

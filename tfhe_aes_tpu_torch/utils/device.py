@@ -1,9 +1,14 @@
 """Where the port's entry points run: the card unless the caller asks for
-the CPU."""
+the CPU; and the constant tensors made once a device."""
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+_constants: dict[tuple, object] = {}
+_constants_lock = threading.Lock()
 
 
 def resolve(device=None) -> torch.device:
@@ -15,3 +20,32 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available: pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def canonical(device) -> torch.device:
+    """`device` with its index: "cuda" and "cuda:0" name one card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def constant(key: tuple, device, make):
+    """make(device), made once per (key, device) in this process: tensors
+    that depend only on `key` (a plan, a parameter set, a table), shared
+    by every later call on that device and never written.  A card's are
+    complete before they are published (the maker's stream synchronised),
+    so a reader on another stream needs no wait, and a call that finds
+    them copies nothing to the device: a captured CUDA graph reads them by
+    address (ops/graphs.py).  Made once also under threads (the warm-up's
+    and keygen's)."""
+    dev = canonical(device)
+    key = key + (dev,)
+    with _constants_lock:
+        made = _constants.get(key)
+        if made is None:
+            made = make(dev)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            _constants[key] = made
+    return made

@@ -2,10 +2,11 @@
 
 Counterpart of tfhe_aes_tpu/utils/noise.py.  The port's own circuits
 (models/fhe_aes.py) run with every ciphertext replaced by a one-word
-tensor holding its noise level and ``ops.wopbs.many_wopbs`` replaced by a
-stub that (a) records the level of every bootstrap input and (b) returns
-fresh level-1 outputs.  A fresh encryption or bootstrap output is level
-1; adding two ciphertexts adds their levels.  Since the circuits run as
+tensor holding its noise level and ``ops.wopbs.many_wopbs`` and
+``many_wopbs_jit`` replaced by a stub that (a) records the level of every
+bootstrap input and (b) returns fresh level-1 outputs.  A fresh
+encryption or bootstrap output is level 1; adding two ciphertexts adds
+their levels.  Since the circuits run as
 they are, any change to their add/refresh structure shows up here.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 from unittest import mock
 
+import numpy as np
 import torch
 
 from ..params import ParamSet
@@ -47,7 +49,8 @@ def _audit_context(ledger: _Ledger):
         return torch.ones((byte_bits.shape[0], lut_polys.shape[-3], 1),
                           dtype=I64)
 
-    with mock.patch.object(wopbs, "many_wopbs", stub):
+    with mock.patch.object(wopbs, "many_wopbs", stub), \
+            mock.patch.object(wopbs, "many_wopbs_jit", stub):
         yield
 
 
@@ -80,6 +83,19 @@ def audit_key_expansion(params: ParamSet) -> dict[str, int]:
         torch.zeros((10, 8, 1), dtype=I64), rcon_fresh=False))
 
 
+def _level_rcon(params: ParamSet) -> np.ndarray:
+    """trivial_rcon as noise levels: noise-free encodings, level 0."""
+    return np.zeros((10, 8, 1), dtype=np.uint64)
+
+
+def audit_key_expansion_staged(params: ParamSet) -> dict[str, int]:
+    """The server's default schedule (Server.aes_key_expansion): trivial
+    RCON, the prologue WoPBS on the whole key reordered."""
+    with mock.patch.object(fhe_aes, "trivial_rcon", _level_rcon):
+        return _audit(lambda: fhe_aes.aes_key_expansion_staged(
+            _StubKeys(params), _fresh(16, 8, 1)))
+
+
 def audit_key_expansion_pk(params: ParamSet) -> dict[str, int]:
     """Reference-faithful schedule: public-key RCON, fresh level 1."""
     return _audit(lambda: fhe_aes.aes_key_expansion(
@@ -104,6 +120,7 @@ def audit_all(params: ParamSet) -> dict[str, dict[str, int]]:
         "encrypt": audit_encrypt(params),
         "decrypt": audit_decrypt(params),
         "key_expansion": audit_key_expansion(params),
+        "key_expansion_staged": audit_key_expansion_staged(params),
         "key_expansion_pk": audit_key_expansion_pk(params),
         "ctr_step": audit_ctr_step(params),
     }
