@@ -27,10 +27,15 @@ the script exits non-zero:
   3. the main path at PARAM_TPU through Client and Server: host keygen,
      key expansion, two CTR keystream batches (4 and 8 blocks) at
      different offsets, host decryption checked against plaintext AES,
-     the kernels' launch counts.  From here on every WoPBS of the
-     circuits (phases 3, 5-7, 8 (a), 10, 11) is a replay of a CUDA graph
-     captured at its first call of a key set and shape (ops/graphs.py);
-     phase 8 (b)'s sharded keys and the noise study (phase 9) run eagerly;
+     the kernels' launch counts.  From here on the server's circuits
+     (phases 3, 5-7, 10, 12: CTR batches, AES encryption and decryption,
+     the pk-RCON key expansion) are replays of whole-function CUDA graphs
+     (models/fhe_aes's ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit,
+     aes_key_expansion_jit), captured at the first call of a key set and
+     shape, every WoPBS inside inline; the trivial key expansion, phase 8
+     (a)'s circuits and phase 6's run with the noise checks armed replay a
+     graph a WoPBS (ops/graphs.py); phase 8 (b)'s sharded keys and the
+     noise study (phase 9) run eagerly;
   4. device keygen: PARAM_TOY on the card equals the CPU leaf by leaf;
      PARAM_TPU timed beside phase 1's host keygen; its keys saved to the
      key cache in a temporary directory and loaded back to equal leaves;
@@ -74,19 +79,29 @@ the script exits non-zero:
      L=8; decrypt 64 B, L=8 and L=32; pk-RCON 4, 12 and 4 B, L=8), each
      graph's kernel nodes (read from its DOT dump) equal to the launches
      that its replays add to the counts; the rotate alone at 16 and 128
-     bits, eager and replayed; a 4-block aes_decrypt eager and graphed,
-     each profiled (the card's busy share), back to the plaintexts; the
-     peak memory of the 1024-byte rounds, eager and graphed.  Times are
-     medians of 3.
+     bits, eager and replayed; the peak memory of the 1024-byte rounds,
+     eager and graphed.  Times are medians of 3;
+ 12. the whole-function units on phase 7's PARAM_TPU keys: each of
+     add_scalar_device_jit, ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit
+     (4 blocks) and aes_key_expansion_jit (trivial and pk-RCON) graphed,
+     its first call and its replays against the function run eagerly,
+     word for word, decrypting as AES says; its graph's rotate and VP
+     calls against the WoPBS it runs, its kernel nodes (DOT dump) against
+     them; eager, first-call and replay times; the 4-block decrypt
+     profiled graphed and eager; then the memory sweep:
+     Server.ctr_keystream over 1 to 8 blocks in turn on one key set, then
+     1 and 8 again, the allocated and reserved memory after each beside
+     the bytes of the new graph's static buffers.
 Every launch count is read from zero around one run of a path (phases 3,
 5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
 whose ranks count their own and report them; each of phase 9's two study
 runs, summed; phase 10's two CLI processes, each counting its own and
-summed; phase 11, eager and graphed calls together); a replay counts
+summed; phase 11, eager and graphed calls together; phase 12, the
+same); a replay counts
 the launches its graph holds, a capture none.  Every kernel of a path
 must have been launched, and (b),
 at cbs_level 2, must launch the rotate and no VP.  The comparisons with
-the plain versions are not counted.  The key cache of phases 4-11 lives
+the plain versions are not counted.  The key cache of phases 4-12 lives
 in a temporary directory, removed at the end; phase 10's in one of its
 own.
 The line before the last is the kernels' JSON record; the last line is
@@ -129,6 +144,8 @@ NOISE_PBS = 4096        # phase 9: boolean PBS bits of a set's study
 NOISE_WOPBS_BYTES = 512  # phase 9: identity-LUT WoPBS bytes of a set's study
 NOISE_PLAIN_ROWS = 16   # phase 9: rotate rows held against the plain version
 COLD_BLOCKS = 2         # phase 10: the CLI's CTR blocks, cold and warm
+UNIT_BLOCKS = 4         # phase 12: the batch units' blocks
+SWEEP_BLOCKS = 8        # phase 12: the memory sweep's largest CTR batch
 # The TPU's measured sigmas, log2, boolean PBS and WoPBS output
 # (NOISE_REPORT_TPU.md, NOISE_REPORT.md): printed beside the card's.
 TPU_SIGMAS = {"PARAM_TPU": (36.06, 55.63), "PARAM_OPT": (32.09, 53.25)}
@@ -785,17 +802,33 @@ def _rotate_unit(keys, ct, test):
         keys.rot_table)
 
 
+# The whole-function units of models/fhe_aes, by name: (the unit, the
+# function it graphs).
+UNITS = {"add_scalar_device_jit": ("_ADD_SCALAR", "add_scalar_device"),
+         "ctr_step_jit": ("_CTR_STEP", "ctr_step"),
+         "aes_encrypt_jit": ("_ENCRYPT", "aes_encrypt"),
+         "aes_decrypt_jit": ("_DECRYPT", "aes_decrypt"),
+         "aes_key_expansion_jit": ("_KEY_EXPANSION", "aes_key_expansion")}
+
+
 @contextlib.contextmanager
 def _eager_wopbs():
-    """Every WoPBS of the circuits eager (the dispatch before graphs):
-    many_wopbs_jit swapped for many_wopbs while the block runs."""
+    """Everything of the circuits eager (the dispatch before graphs):
+    many_wopbs_jit swapped for many_wopbs and each whole-function unit
+    for the function it graphs while the block runs."""
+    from tfhe_aes_tpu_torch.models import fhe_aes
     from tfhe_aes_tpu_torch.ops import wopbs
+    saved = {name: getattr(fhe_aes, name) for name in UNITS}
     jit = wopbs.many_wopbs_jit
     wopbs.many_wopbs_jit = wopbs.many_wopbs
+    for name, (_, plain) in UNITS.items():
+        setattr(fhe_aes, name, getattr(fhe_aes, plain))
     try:
         yield
     finally:
         wopbs.many_wopbs_jit = jit
+        for name, fn in saved.items():
+            setattr(fhe_aes, name, fn)
 
 
 # The kernel functions one launch-counted call runs: the rotate's per
@@ -806,24 +839,23 @@ VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
             "vp_inverse_crt_kernel")
 
 
-def _check_graph_nodes(graph, p, nbits: int, what: str):
+def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     """The kernel nodes of a captured graph, by kernel, against what its
     replays add to the launch counts (graph.held: rotate and VP calls):
     a call of the rotate is one decomposition and n (the LWE dimension)
     steps of K1 and K2, a call of VP one of each of its three kernels a
-    rotated selector bit, min(nbits, log2 N)."""
+    rotated selector bit (min(nbits, log2 N) a call: vp_bits in all)."""
     from tfhe_aes_tpu_torch.ops import graphs
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
-    rot, vp = graph.held
-    vp_bits = min(nbits, p.log2_poly_size)
+    rot, _ = graph.held
     want = {ROTATE_ONCE: rot,
             **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
-            **{k: vp * vp_bits for k in VP_NODES}}
+            **{k: vp_bits for k in VP_NODES}}
     got = {k: sum(n for name, n in nodes.items() if k in name)
            for k in want}
     if got != want:
-        raise AssertionError(f"phase 11 {what}: the graph holds kernel "
+        raise AssertionError(f"{what}: the graph holds kernel "
                              f"nodes {got}, its replays count {want}")
     return sum(got.values())
 
@@ -853,11 +885,10 @@ def _graph_phase(dev, wrappers) -> dict:
     eager word for word (the first call on the bytes reversed, so the
     replays read new static inputs), each replay adding the launches its
     graph holds; the rotate alone at 16 and 128 bits, eager and replayed;
-    a 4-block aes_decrypt eager and graphed, each profiled, back to the
-    plaintexts; peak memory of the 1024-byte rounds eager and graphed.
-    Every graph is captured keeping its CUDA graph, whose kernel nodes
-    are held against the launches its replays count.  Times are medians
-    of 3.  Returns the launch counts of the phase."""
+    peak memory of the 1024-byte rounds eager and graphed.  Every graph
+    is captured keeping its CUDA graph, whose kernel nodes are held
+    against the launches its replays count.  Times are medians of 3.
+    Returns the launch counts of the phase."""
     import numpy as np
     import torch
     from tfhe_aes_tpu_torch.backend import numpy_backend as nb
@@ -944,7 +975,9 @@ def _graph_phase(dev, wrappers) -> dict:
         (graph,) = [g for k, g in graphs.GRAPHS.graphs(keys).items()
                     if k[2][0][0] == tuple(x.shape)
                     and k[2][1][0] == tuple(lut.shape)]
-        n_nodes = _check_graph_nodes(graph, p, nbits, label)
+        n_nodes = _check_graph_nodes(
+            graph, p, graph.held[1] * min(nbits, p.log2_poly_size),
+            f"phase 11 {label}")
         times = []
         for _ in range(3):
             got, ms = _timed(wopbs.many_wopbs_jit, keys, x, lut)
@@ -977,7 +1010,7 @@ def _graph_phase(dev, wrappers) -> dict:
         graphs.GRAPHS(_rotate_unit, keys, (ct.flip(0), test))
         (graph,) = [g for k, g in graphs.GRAPHS.graphs(keys).items()
                     if k[0] is _rotate_unit and k[2][0][0] == tuple(ct.shape)]
-        _check_graph_nodes(graph, p, 0, f"rotate {n_bits} bits")
+        _check_graph_nodes(graph, p, 0, f"phase 11 rotate {n_bits} bits")
         got, g_ms = _median_ms(graphs.GRAPHS, _rotate_unit, keys, (ct, test))
         _require_equal(got, want, f"phase 11 rotate {n_bits} bits")
         bound, _ = rotate_bound(p, keys.rplan, n_bits)
@@ -985,32 +1018,224 @@ def _graph_phase(dev, wrappers) -> dict:
               f"{e_ms:.2f} ms, replayed {g_ms:.2f} ms, == word for word; "
               f"bound {bound:.2f} ms")
 
-    # The 4-block decrypt, graphed (its two 64-byte graphs captured
-    # above) and eager, each profiled.
-    n = BENCH_DECRYPT
-    plains = [(IV + t) % (1 << 128) for t in range(n)]
-    state = torus.from_u64(np.stack([client.encrypt_u128(v)
-                                     for v in plains]), dev)
-    ct = server.aes_encrypt(rks_g, state)
-    back_g, dec_g_ms = _median_ms(server.aes_decrypt, rks_g, ct)
-    busy_g = _profile_decrypt(server, rks_g, ct, n, "phase 11", top=3)
-    with _eager_wopbs():
-        back_e, dec_e_ms = _median_ms(server.aes_decrypt, rks_g, ct)
-        busy_e = _profile_decrypt(server, rks_g, ct, n, "phase 11", top=3)
-    _require_equal(back_g, back_e, "phase 11 aes_decrypt graphed vs eager")
-    host = torus.to_u64(back_g)
-    if [client.decrypt_state_u128(host[i]) for i in range(n)] != plains:
-        raise AssertionError("phase 11: the graphed aes_decrypt does not give "
-                             "the plaintexts back")
-    print(f"phase 11: aes_decrypt {n} blocks graphed {dec_g_ms:.1f} ms "
-          f"({busy_g:.1f}% busy), eager {dec_e_ms:.1f} ms ({busy_e:.1f}% "
-          f"busy); == word for word, back to the plaintexts")
     counts = _read_launches(wrappers, path)
     graphs.GRAPHS.cuda.keep = False
     print(f"phase 11: {graphs.GRAPHS.captures} captures and "
           f"{graphs.GRAPHS.replays} replays in this process; whole phase "
           f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
-    del server, keys, rks, rks_g, rks_e, ct, back_g, back_e, state
+    del server, keys, rks, rks_g, rks_e
+    return {path: counts}
+
+
+def _unit_graph(keys, before: set):
+    """The one graph of `keys` captured since `before` (its keys then)."""
+    from tfhe_aes_tpu_torch.ops import graphs
+    new = [g for k, g in graphs.GRAPHS.graphs(keys).items() if k not in before]
+    if len(new) != 1:
+        raise AssertionError(f"phase 12: {len(new)} graphs captured, not 1")
+    key = next(k for k in graphs.GRAPHS.graphs(keys) if k not in before)
+    return key, new[0]
+
+
+def _unit_launches(p, unit, graph, static) -> tuple:
+    """(rotate calls, VP calls, VP selector bits) of a unit's graph: a
+    rotate call a cbs level of each WoPBS the unit runs, a VP call a tail
+    chunk (its balanced chunks under the cap in the graph's key), each
+    rotating min(nbits, log2 N) selector bits."""
+    from tfhe_aes_tpu_torch.ops import wopbs
+    caps = dict(static[-1])
+    rot = vp = bits = 0
+    for shape, count in unit.wopbs(*graph.inputs, *static[:-1]).items():
+        n_bytes, _, nbits = shape
+        chunks = -(-n_bytes // wopbs._chunk_size(n_bytes, caps[shape]))
+        rot += count * p.cbs_level
+        if p.cbs_level == 1:
+            vp += count * chunks
+            bits += count * chunks * min(nbits, p.log2_poly_size)
+    return rot, vp, bits
+
+
+def _unit_phase(dev, wrappers, smi: str) -> dict:
+    """Phase 12: the whole-function dispatch units of models/fhe_aes
+    (add_scalar_device_jit, ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit,
+    aes_key_expansion_jit with trivial and pk-RCON schedules) on phase 7's
+    PARAM_TPU keys, UNIT_BLOCKS blocks.  Each run eagerly (every WoPBS
+    eager) on inputs A and B; graphed, its first call (a warm-up call on
+    the first block or round, the capture, a replay) on B and two replays
+    on A, each word for word against eager, the results
+    decrypting as AES says; its graph's rotate and VP calls against those
+    of the WoPBS the unit runs, and its kernel nodes (DOT dump) against
+    them.  The decrypt profiled graphed and eager.  Then the memory sweep
+    on a fresh load of the keys: Server.ctr_keystream over 1 to
+    SWEEP_BLOCKS blocks in turn, then 1 and SWEEP_BLOCKS again (replays),
+    memory_allocated / reserved after each beside the bytes of the new
+    graph's static buffers.  Returns the
+    launch counts of the phase."""
+    import gc
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.ops import graphs
+    from tfhe_aes_tpu_torch.params import PARAM_TPU
+    from tfhe_aes_tpu_torch.server import Server
+    from tfhe_aes_tpu_torch.utils import serialization, torus
+
+    torch.cuda.empty_cache()
+    p, n = PARAM_TPU, UNIT_BLOCKS
+    path = "whole-function units (phase 12)"
+    t_phase = time.perf_counter()
+    print(f"phase 12: {smi}")
+    client = Client(p, seed=0)
+    cache = serialization.cache_path(p, 0)
+    client.sk, keys = serialization.load_keys(cache)
+    keys = keys.to(dev)
+    server = Server(keys, client.make_public_key(),
+                    rng=np.random.default_rng(9))
+    graphs.GRAPHS.cuda.keep = True          # for the graphs' DOT dumps
+    _reset_launches(wrappers)
+
+    def u64(x):
+        return torus.from_u64(x, dev)
+
+    def schedule(key):
+        return aes_plain.key_expansion(aes_plain.u128_to_bytes_be(key))
+
+    def blocks(vals):
+        return u64(np.stack([client.encrypt_u128(v) for v in vals]))
+
+    def luts(offset):
+        return tuple(u64(t) for t in fhe_aes.add_scalar_luts(
+            p, fhe_aes.counter_bytes(n, offset)))
+
+    def aes(vals):
+        return [aes_plain.ctr_keystream(KEY, v, 1)[0] for v in vals]
+
+    key_b = KEY ^ 0xFF
+    rks = u64(np.stack([np.stack([client.encrypt_byte(b) for b in rk])
+                        for rk in schedule(KEY)]))
+    iv = u64(client.encrypt_u128(IV))
+    rcon = u64(server.encrypt_rcon())
+    plains = {"A": [IV + t for t in range(n)],
+              "B": [IV + 0x100 + t for t in range(n)]}
+    offsets = {"A": 0x1FE, "B": 0x2FD}
+    enc_keys = {"A": u64(client.encrypt_u128(KEY)),
+                "B": u64(client.encrypt_u128(key_b))}
+    states = {k: blocks(v) for k, v in plains.items()}
+    cts = {k: blocks(aes(v)) for k, v in plains.items()}
+    lut_sets = {k: luts(v) for k, v in offsets.items()}
+    cases = (
+        ("add_scalar_device_jit", f"{n} blocks", {},
+         lambda s: (iv[None].expand((n,) + tuple(iv.shape)), *lut_sets[s]),
+         lambda s: [IV + offsets[s] + t for t in range(n)]),
+        ("ctr_step_jit", f"{n} blocks", {},
+         lambda s: (rks, iv, *lut_sets[s]),
+         lambda s: aes([IV + offsets[s] + t for t in range(n)])),
+        ("aes_encrypt_jit", f"{n} blocks", {},
+         lambda s: (rks, states[s]), lambda s: aes(plains[s])),
+        ("aes_decrypt_jit", f"{n} blocks", {},
+         lambda s: (rks, cts[s]), lambda s: plains[s]),
+        ("aes_key_expansion_jit", "trivial RCON", {},
+         lambda s: (enc_keys[s],), None),
+        ("aes_key_expansion_jit", "pk-RCON", {"rcon_fresh": True},
+         lambda s: (enc_keys[s], rcon), None))
+    for name, what, kw, args, want_plain in cases:
+        label = f"{name} ({what})"
+        unit_obj = getattr(fhe_aes, UNITS[name][0])
+        with _eager_wopbs():
+            jit = getattr(fhe_aes, name)            # the plain function
+            want_a, e_ms = _timed(jit, keys, *args("A"), **kw)
+            want_b = jit(keys, *args("B"), **kw)
+        before = set(graphs.GRAPHS.graphs(keys))
+        jit = getattr(fhe_aes, name)
+        first, f_ms = _timed(jit, keys, *args("B"), **kw)
+        _require_equal(first, want_b, f"phase 12 {label}: first call")
+        times = []
+        for _ in range(2):
+            got, ms = _timed(jit, keys, *args("A"), **kw)
+            times.append(ms)
+            _require_equal(got, want_a, f"phase 12 {label}: replay")
+        key, graph = _unit_graph(keys, before)
+        if key[0] is not unit_obj:
+            raise AssertionError(f"phase 12 {label}: not the unit's graph")
+        rot, vp, vp_bits = _unit_launches(p, unit_obj, graph, key[1])
+        if graph.held != (rot, vp):
+            raise AssertionError(f"phase 12 {label}: the graph holds "
+                                 f"{graph.held} calls, its WoPBS {rot, vp}")
+        n_nodes = _check_graph_nodes(graph, p, vp_bits, f"phase 12 {label}")
+        host = torus.to_u64(got)
+        if want_plain is None:
+            ok = [[client.decrypt_byte(host[r, i]) for i in range(16)]
+                  for r in range(11)] == schedule(KEY)
+        else:
+            ok = [client.decrypt_state_u128(host[i])
+                  for i in range(n)] == want_plain("A")
+        if not ok:
+            raise AssertionError(f"phase 12 {label}: does not decrypt as "
+                                 f"AES says")
+        print(f"phase 12: {label}: first call and replays == eager word for "
+              f"word, decrypt as AES says; eager {e_ms:.1f} ms, first call "
+              f"{f_ms:.1f} ms (a warm-up call, the capture, a replay), "
+              f"replays {times[0]:.1f} / {times[1]:.1f} ms; launches a replay "
+              f"{dict(zip(wrappers, graph.held))}, {n_nodes} kernel nodes "
+              f"of theirs in the graph")
+        if name == "aes_decrypt_jit":
+            busy_g = _profile_decrypt(server, rks, cts["A"], n, "phase 12",
+                                      top=3)
+            with _eager_wopbs():
+                busy_e = _profile_decrypt(server, rks, cts["A"], n,
+                                          "phase 12", top=3)
+            print(f"phase 12: {label}: busy share graphed {busy_g:.1f}%, "
+                  f"eager {busy_e:.1f}%")
+        del first, got, want_a, want_b
+    graphs.GRAPHS.cuda.keep = False
+    del server, keys, rks, iv, rcon, states, cts, lut_sets, enc_keys
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # The memory sweep: one key set, one graph a new CTR batch size.
+    client.sk, keys = serialization.load_keys(cache)
+    keys = keys.to(dev)
+    server = Server(keys)
+    rks = u64(np.stack([np.stack([client.encrypt_byte(b) for b in rk])
+                        for rk in schedule(KEY)]))
+    iv = u64(client.encrypt_u128(IV))
+    torch.cuda.synchronize()
+    start_alloc = torch.cuda.memory_allocated()
+    static_sum = 0
+    for rnd, sizes in (("new shape", range(1, SWEEP_BLOCKS + 1)),
+                       ("replay", (1, SWEEP_BLOCKS))):
+        for b in sizes:
+            before = set(graphs.GRAPHS.graphs(keys))
+            a0, r0 = torch.cuda.memory_allocated(), \
+                torch.cuda.memory_reserved()
+            ks, ms = _timed(server.ctr_keystream, rks, iv, b, 16 * b)
+            client.fetch_and_verify_ctr(ks, KEY, IV, offset=16 * b)
+            del ks
+            torch.cuda.synchronize()
+            a1, r1 = torch.cuda.memory_allocated(), \
+                torch.cuda.memory_reserved()
+            new = [g for k, g in graphs.GRAPHS.graphs(keys).items()
+                   if k not in before]
+            static = sum(t.numel() * t.element_size()
+                         for g in new for t in g.inputs + (g.output,))
+            static_sum += static
+            print(f"phase 12: memory sweep, ctr_keystream {b} blocks "
+                  f"({rnd}, {len(new)} graph(s) captured): {ms:.0f} ms, "
+                  f"verified; allocated {a1 / 2**20:.1f} MiB "
+                  f"({(a1 - a0) / 2**20:+.2f}), its graph's static buffers "
+                  f"{static / 2**20:.2f} MiB; reserved {r1 / 2**30:.2f} GiB "
+                  f"({(r1 - r0) / 2**20:+.1f} MiB)")
+    grew = torch.cuda.memory_allocated() - start_alloc
+    print(f"phase 12: memory sweep: allocated grew {grew / 2**20:.2f} MiB "
+          f"over {SWEEP_BLOCKS} new batch sizes and two replays, the "
+          f"graphs' static buffers {static_sum / 2**20:.2f} MiB "
+          f"({(grew - static_sum) / 2**20:+.2f} MiB beyond them)")
+    counts = _read_launches(wrappers, path)
+    print(f"phase 12: whole phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    del server, keys, rks, iv
     return {path: counts}
 
 
@@ -1388,13 +1613,14 @@ def main() -> int:
         paths.update(_cold_start_phase(wrappers))
         print("phase 10: temporary directory removed")
         paths.update(_graph_phase(dev, wrappers))
+        paths.update(_unit_phase(dev, wrappers, smi))
     finally:
         if old_cache is None:
             os.environ.pop("TFHE_AES_TPU_CACHE", None)
         else:
             os.environ["TFHE_AES_TPU_CACHE"] = old_cache
         shutil.rmtree(cache_dir, ignore_errors=True)
-    print(f"phase 11: key cache directory removed; whole script "
+    print(f"phase 12: key cache directory removed; whole script "
           f"{time.perf_counter() - t_start:.0f} s")
 
     def launch_fields(name):

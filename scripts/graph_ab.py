@@ -10,9 +10,11 @@ the bench's default, unless given) from the
 checkout at ROOT (a directory that holds ``tfhe_aes_tpu_torch/``), all on
 one key cache in a temporary directory (the first run's device keygen
 saves the PARAM_TPU seed-0 keys, the others load them).  ``:eager`` runs
-a checkout that has ``ops/graphs.py`` with every WoPBS of its circuits
-dispatched eagerly (``wopbs.many_wopbs_jit`` swapped for ``many_wopbs``,
-the dispatch of the checkouts before it).  Pass the runs in turns (A, B,
+a checkout that has ``ops/graphs.py`` with its circuits dispatched
+eagerly (``wopbs.many_wopbs_jit`` swapped for ``many_wopbs`` and, where
+the checkout has them, the whole-function units of ``models/fhe_aes``
+for the functions they graph: the dispatch of the checkouts before
+graphs).  Pass the runs in turns (A, B,
 B, A) to compare them on one card.  Prints every child's output, a JSON
 line a run (the bench's first and warm key expansion, seconds a CTR batch
 and blocks/min, decrypt seconds and blocks/min, peak device memory
@@ -44,8 +46,13 @@ RUNNER = """
 import runpy, sys
 import torch
 if sys.argv[1] == "1":
+    from tfhe_aes_tpu_torch.models import fhe_aes
     from tfhe_aes_tpu_torch.ops import wopbs
     wopbs.many_wopbs_jit = wopbs.many_wopbs
+    for name in ("add_scalar_device", "ctr_step", "aes_encrypt",
+                 "aes_decrypt", "aes_key_expansion"):
+        if hasattr(fhe_aes, name + "_jit"):
+            setattr(fhe_aes, name + "_jit", getattr(fhe_aes, name))
 sys.argv = ["tfhe_aes_tpu_torch.bench"] + sys.argv[2:]
 try:
     runpy.run_module("tfhe_aes_tpu_torch.bench", run_name="__main__",

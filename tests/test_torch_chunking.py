@@ -93,15 +93,16 @@ def test_ctr_keystream_block_chunk_equals_one_batch_and_jax():
 def test_ctr_keystream_dispatch_count(monkeypatch):
     """37 blocks under block_chunk=32 run AES as two balanced chunks of 19
     (the ragged one wrap-padded) and reassemble the batch; the AES and
-    the ripple add are stubbed (identity over the state)."""
+    the ripple add units they dispatch to are stubbed (identity over the
+    state)."""
     calls = []
 
     def fake_aes(keys, round_keys, state):
         calls.append(state.shape[0])
         return state
 
-    monkeypatch.setattr(fhe_aes, "aes_encrypt", fake_aes)
-    monkeypatch.setattr(fhe_aes, "add_scalar_device",
+    monkeypatch.setattr(fhe_aes, "aes_encrypt_jit", fake_aes)
+    monkeypatch.setattr(fhe_aes, "add_scalar_device_jit",
                         lambda keys, state, lut_lsb, luts_rest: state)
     keys = SimpleNamespace(params=PARAM_TOY)
     enc_iv = torch.arange(16 * 8 * 4, dtype=torch.int64).reshape(16, 8, 4)

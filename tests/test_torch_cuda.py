@@ -347,3 +347,89 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want} == want
     assert rot == params.cbs_level and vp == int(params.cbs_level == 1)
+
+
+def _unit_cases(client, dev, aes_plain, fhe_aes):
+    """unit label -> (the unit, the function it graphs, static keywords,
+    its arguments on inputs A and on inputs B), 2 blocks at most."""
+    p = client.params
+
+    def u64(x):
+        return torus.from_u64(x, dev)
+    sched = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(0x2B7E1516))
+    rks = u64(np.stack([np.stack([client.encrypt_byte(b) for b in rk])
+                        for rk in sched]))
+    iv = u64(client.encrypt_u128(0x1FF))
+    states = {s: u64(np.stack([client.encrypt_u128(v + 0x33 * i)
+                               for i in range(2)])) for s, v in
+              (("A", 7), ("B", 9))}
+    lut = {s: tuple(u64(t) for t in fhe_aes.add_scalar_luts(
+        p, fhe_aes.counter_bytes(2, off))) for s, off in (("A", 1),
+                                                          ("B", 0x101))}
+    keys = {s: u64(client.encrypt_u128(k)) for s, k in (("A", 5), ("B", 6))}
+    rcon = u64(client.make_public_key().encrypt_bits(
+        np.stack([np.array([(int(r) >> j) & 1 for j in range(8)], U64)
+                  for r in tables.RCON]), np.random.default_rng(3)))
+    return {
+        "add_scalar_device_jit": (fhe_aes.add_scalar_device, {},
+                                  lambda s: (states[s], *lut[s])),
+        "ctr_step_jit": (fhe_aes.ctr_step, {},
+                         lambda s: (rks, iv, *lut[s])),
+        "aes_encrypt_jit": (fhe_aes.aes_encrypt, {},
+                            lambda s: (rks, states[s])),
+        "aes_decrypt_jit": (fhe_aes.aes_decrypt, {},
+                            lambda s: (rks, states[s])),
+        "aes_key_expansion_jit": (fhe_aes.aes_key_expansion, {},
+                                  lambda s: (keys[s],)),
+        "aes_key_expansion_jit pk-RCON": (fhe_aes.aes_key_expansion,
+                                          {"rcon_fresh": True},
+                                          lambda s: (keys[s], rcon)),
+    }
+
+
+@pytest.mark.parametrize("label", [
+    "add_scalar_device_jit", "ctr_step_jit", "aes_encrypt_jit",
+    "aes_decrypt_jit", "aes_key_expansion_jit",
+    "aes_key_expansion_jit pk-RCON"])
+def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
+                                                           monkeypatch,
+                                                           tmp_path):
+    """Each whole-function unit at a cbs_level=1 toy set: its first call
+    (a warm-up call on the first block or round, the capture, a replay)
+    and a replay on other inputs give the words of the function run
+    eagerly; its graph holds one rotate and one VP call a WoPBS, equal to
+    its kernel nodes (DOT dump), and a replay adds them to the counts."""
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.ops import graphs
+    monkeypatch.setattr(graphs.GRAPHS.cuda, "keep", True)
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    plain, kw, args = _unit_cases(client, dev, aes_plain, fhe_aes)[label]
+    unit = getattr(fhe_aes, label.split()[0])
+    with monkeypatch.context() as m:
+        m.setattr(wopbs, "many_wopbs_jit", wopbs.many_wopbs)
+        want = {s: plain(k, *args(s), **kw) for s in "AB"}
+    first = unit(k, *args("B"), **kw)
+    ((key, graph),) = graphs.GRAPHS.graphs(k).items()
+    wrappers = graphs.kernel_counters()
+    counts = [w.launches for w in wrappers]
+    second = unit(k, *args("A"), **kw)
+    assert [w.launches - n for w, n in zip(wrappers, counts)] == \
+        list(graph.held)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want["B"]) and torch.equal(second, want["A"])
+    static = key[1]
+    runs = key[0].wopbs(*graph.inputs, *static[:-1])
+    n_wopbs = sum(runs.values())
+    assert graph.held == (n_wopbs, n_wopbs)
+    assert all(cap >= shape[0] for shape, cap in static[-1])  # one chunk
+    nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
+    bits = sum(c * min(s[2], PARAM_TOY_VP.log2_poly_size)
+               for s, c in runs.items())
+    n = PARAM_TOY_VP.lwe_dimension
+    want_nodes = {"br_decompose_kernel": n_wopbs,
+                  "br_forward_mac_kernel": n * n_wopbs,
+                  "br_inverse_crt_kernel": n * n_wopbs,
+                  "vp_digits_kernel": bits, "vp_forward_mac_kernel": bits,
+                  "vp_inverse_crt_kernel": bits}
+    assert {name: sum(c for f, c in nodes.items() if name in f)
+            for name in want_nodes} == want_nodes

@@ -115,6 +115,14 @@ def test_rotations_and_extract():
           jlwe.sample_extract0(jnp.asarray(polys)))
 
 
+def test_lwe_trivial():
+    rng = np.random.default_rng(12)
+    m = _u64(rng, (3, 5))
+    for n in (1, 32):
+        _same(lwe.lwe_trivial(torus.from_u64(m), n),
+              jlwe.lwe_trivial(jnp.asarray(m), n))
+
+
 @pytest.mark.parametrize("base_log,levels,q_bits",
                          [(8, 4, 48), (12, 3, 48), (2, 6, 64), (12, 3, 64),
                           (15, 1, 64)])
@@ -199,6 +207,37 @@ def test_macs_and_rotate_delta(plans):
           jntt.barrett_rotate_delta(pj, want, jnp.asarray(tw), p_j, inv_j))
 
 
+def test_pointwise_mac_equals_jax_and_the_limb_macs(plans):
+    """The golden elementwise MAC against the JAX one, dhat
+    relaxed-balanced (|.| <= p) and ghat balanced; then the limb MACs
+    (mac_batched, mac_shared) against it, as tests/test_device_ntt.py
+    holds the JAX ones."""
+    _, (pj, pt) = plans
+    rng = np.random.default_rng(13)
+    P, B, F, R, J, n = pj.n_primes, 3, 2, 7, 5, 128
+    primes = np.array(pj.primes, dtype=np.int64)[:, None, None, None, None]
+    dhat = (rng.integers(-1 << 20, 1 << 20, (P, B, F, R, n)) % (2 * primes + 1)
+            - primes).astype(np.int32)                  # |.| <= p
+    half = primes // 2
+    ghat = (rng.integers(-1 << 20, 1 << 20, (P, B, R, J, n)) % (2 * half + 1)
+            - half).astype(np.int32)                    # |.| <= p/2
+    want = jntt.pointwise_mac(pj, jnp.asarray(dhat), jnp.asarray(ghat[:, :, None]))
+    got = ntt.pointwise_mac(pt, torch.from_numpy(dhat),
+                            torch.from_numpy(ghat[:, :, None]))
+    assert got.dtype == torch.int32
+    _same(got, want)
+    bal = (dhat + primes) % primes                      # balanced dhat
+    bal = np.where(bal > primes // 2, bal - primes, bal).astype(np.int32)
+    golden = ntt.pointwise_mac(pt, torch.from_numpy(bal),
+                               torch.from_numpy(ghat[:, :, None]))
+    assert torch.equal(ntt.mac_batched(pt, torch.from_numpy(bal),
+                                       torch.from_numpy(ghat)), golden)
+    golden_s = ntt.pointwise_mac(pt, torch.from_numpy(bal[:, :, 0]),
+                                 torch.from_numpy(ghat[:, None, 0]))
+    assert torch.equal(ntt.mac_shared(pt, torch.from_numpy(bal[:, :, 0]),
+                                      torch.from_numpy(ghat[:, 0])), golden_s)
+
+
 @pytest.mark.parametrize("which", ["torus64", "rotate48"])
 def test_intt_crt_and_residues(plans, which):
     pj, pt = plans[0] if which == "torus64" else plans[1]
@@ -256,6 +295,23 @@ def test_client_keys_and_ciphertexts_equal_jax(toy_keys):
     ct = tc.encrypt_u128(x)
     np.testing.assert_array_equal(ct, jc.encrypt_u128(x))
     assert tc.decrypt_state_u128(ct) == x
+
+
+def test_circuit_bootstrap_bits(toy_keys):
+    """[B, nbits, n+1] small bits -> the GGSW NTT stack [nbits, P, B, R2,
+    k+1, N], word for word against JAX."""
+    from tfhe_aes_tpu.ops import wopbs as jwopbs
+    from tfhe_aes_tpu_torch.ops import wopbs
+    jc, jd, tc, td = toy_keys
+    cts = np.stack([tc.encrypt_byte(v) for v in (0xA5, 0x3C)])[:, :3]
+    small = keyswitch.keyswitch(PARAM_TOY, td.ksk_limbs, torus.from_u64(cts))
+    got = wopbs.circuit_bootstrap_bits(td, small)
+    want = jwopbs.circuit_bootstrap_bits(jd, jnp.asarray(torus.to_u64(small)))
+    p = PARAM_TOY
+    assert tuple(got.shape) == (3, td.plan.n_primes, 2,
+                                (p.glwe_dimension + 1) * p.cbs_level,
+                                p.glwe_dimension + 1, p.polynomial_size)
+    _same(got, want)
 
 
 def test_keyswitch(toy_keys):

@@ -131,6 +131,24 @@ def test_precompile_on_the_cpu_runs_every_target():
     assert all(v >= 0 for v in got.values())
 
 
+def test_precompile_takes_the_jax_block_chunk_keyword(monkeypatch):
+    """precompile(params, n_blocks, block_chunk=32), the JAX signature:
+    accepted and, like n_blocks, ignored (nothing warmed depends on the
+    batch)."""
+    import inspect
+    from tfhe_aes_tpu.utils import warmup as jwarmup
+    assert "block_chunk" in inspect.signature(jwarmup.precompile).parameters
+    targets = []
+    monkeypatch.setattr(warmup, "_tiles",
+                        lambda params, device: targets.append("tiles"))
+    monkeypatch.setattr(warmup, "_zero_key_wopbs",
+                        lambda params, device: targets.append("wopbs"))
+    for kw in ({"block_chunk": 32}, {"block_chunk": None}, {}):
+        report = warmup.precompile(PARAM_TOY, 64, device="cpu", **kw).join()
+        assert {"tiles", "zero_key_wopbs"} <= set(report)
+    assert targets == ["tiles", "wopbs"] * 3
+
+
 def test_a_failing_target_fails_join(monkeypatch):
     def broken(params, device):
         raise RuntimeError("tiles failed")

@@ -10,22 +10,30 @@ their jitted WoPBS: on a card, the replay of a graph captured once per key
 set and shape (ops/graphs.py).  The LUT stacks, RCON encodings and gather
 indices are tensors made once a device (utils/device.constant), so no
 call copies a constant to the card.
+
+The JAX package also compiles five whole functions (add_scalar_device_jit,
+ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit, aes_key_expansion_jit);
+their counterparts here graph the whole function once per key set and
+shape, every WoPBS inside it inline, and the server, ctr_keystream and
+add_scalar dispatch through them as the JAX callers do.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from . import aes_plain, luts, tables
-from ..ops import wopbs
+from ..ops import graphs, wopbs
 from ..ops.keys import DeviceKeys
 from ..utils import device as device_mod
-from ..utils import torus
+from ..utils import noise_asserts, torus
 
 # Column-major ShiftRows permutation: new[i] = old[SHIFT[i]].
 SHIFT = tuple(aes_plain._SHIFT)
@@ -216,7 +224,8 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
 
     rcon_cts [10, 8, big+1]: None takes the trivial noise-free encodings
     (trivial_rcon); public-key-encrypted RCON (fresh, noise level 1)
-    selects the 3-WoPBS round, ``rcon_fresh`` overrides that choice.
+    selects the 3-WoPBS round, ``rcon_fresh`` overrides that choice.  A
+    round a row of rcon_cts, as the JAX schedule scans over them.
 
     Trivial RCON, one WoPBS per round: n0 = w0 + sub (level 2), n1 = w1 +
     n0 (3), n2 = w2 + n1 (4), n3 = w3 + n2 (5 = the budget); one 16-byte
@@ -243,7 +252,7 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
     rks = [enc_key]
     if rcon_fresh:
         ident = _on(enc_key, _identity_lut, p)
-        for r in range(10):
+        for r in range(rcon_cts.shape[0]):
             w = rk.reshape(4, 4, 8, rk.shape[-1])
             temp = wopbs.many_wopbs_jit(keys, w[3][rot_word], sbox_l)
             temp[0] += rcon_cts[r]                       # level 2
@@ -262,12 +271,12 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
 
 
 def _expand_rounds(keys: DeviceKeys, rk, sub, rcon_cts) -> list:
-    """The 10 trivial-RCON rounds from round key 0 and its SubWord: one
-    16-byte {identity, S-box} WoPBS a round."""
+    """The trivial-RCON rounds (a row of rcon_cts each) from round key 0
+    and its SubWord: one 16-byte {identity, S-box} WoPBS a round."""
     refresh_sbox_l = _on(rk, _refresh_sbox_lut, keys.params)
     last_word = _index(rk, (13, 14, 15, 12))
     rks = []
-    for r in range(10):
+    for r in range(rcon_cts.shape[0]):
         out = wopbs.many_wopbs_jit(keys, _expand_glue(rk, sub, rcon_cts[r]),
                                    refresh_sbox_l)
         rk = out[:, :8]
@@ -343,14 +352,6 @@ def add_scalar_device(keys: DeviceKeys, state, lut_lsb, luts_rest):
     return state
 
 
-def add_scalar(keys: DeviceKeys, state, i_bytes: np.ndarray):
-    """Build the LUTs on the host, run the ripple add on state's device."""
-    lut_lsb, luts_rest = add_scalar_luts(keys.params, i_bytes)
-    return add_scalar_device(keys, state,
-                             torus.from_u64(lut_lsb, state.device),
-                             torus.from_u64(luts_rest, state.device))
-
-
 def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
     """One CTR batch: broadcast IV -> ripple-add counters -> AES."""
     B = lut_lsb.shape[0]
@@ -359,24 +360,185 @@ def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
     return aes_encrypt(keys, round_keys, state)
 
 
+# -- the whole-function dispatch units -----------------------------------------
+# The WoPBS each unit runs, {(bytes, LUT outputs, bits a byte): count}: the
+# shapes whose chunk caps it decides before its capture.
+
+def _ripple_wopbs(lut_lsb, luts_rest) -> collections.Counter:
+    """The ripple add's: the 8-bit first step, then one 9-bit step a
+    carried byte (the LUTs' leading axes: blocks, steps)."""
+    B = lut_lsb.shape[0]
+    return collections.Counter({(B, lut_lsb.shape[1], 8): 1,
+                                (B, luts_rest.shape[2], 9):
+                                luts_rest.shape[0]})
+
+
+def _encrypt_wopbs(n_blocks: int) -> collections.Counter:
+    """AES encryption's: 9 rounds of the fused {S-box, x2, x3} stack (L =
+    24), the final round's S-box (L = 8), each over 16 bytes a block."""
+    return collections.Counter({(16 * n_blocks, 24, 8): 9,
+                                (16 * n_blocks, 8, 8): 1})
+
+
+def _decrypt_wopbs(n_blocks: int) -> collections.Counter:
+    """AES decryption's: 10 inverse S-boxes (L = 8), 9 InvMixColumns
+    multiple stacks (L = 32)."""
+    return collections.Counter({(16 * n_blocks, 8, 8): 10,
+                                (16 * n_blocks, 32, 8): 9})
+
+
+def _key_expansion_wopbs(rcon_cts, rcon_fresh: bool) -> collections.Counter:
+    """The key schedule's, a round a row of rcon_cts: pk-RCON, a 4-byte
+    S-box, a 12-byte and a 4-byte refresh a round; trivial RCON, the
+    4-byte SubWord, then one 16-byte {identity, S-box} WoPBS a round."""
+    rounds = rcon_cts.shape[0]
+    if rcon_fresh:
+        return collections.Counter({(4, 8, 8): 2 * rounds,
+                                    (12, 8, 8): rounds})
+    return collections.Counter({(4, 8, 8): 1, (16, 16, 8): rounds})
+
+
+@dataclasses.dataclass(frozen=True)
+class _Unit:
+    """A whole function as a compiled dispatch unit (ops/graphs.py).
+
+    fn(keys, *args): the function, args its tensors then its static
+    arguments.  wopbs(*args): the WoPBS it runs (the Counters above).
+    first(*args): the arguments of its warm-up call, the first block of
+    every batch-leading tensor (the key schedule's: its first round)."""
+    fn: Callable
+    wopbs: Callable
+    first: Callable
+
+    def __call__(self, keys: DeviceKeys, *args):
+        """fn under the WoPBS caps decided for it (args end with them)."""
+        *args, caps = args
+        with wopbs.decided_caps(caps):
+            return self.fn(keys, *args)
+
+    def warm(self, keys: DeviceKeys, *args):
+        """The eager call before a capture, outside the graphs' pool: it
+        builds the kernel libraries and tiles, cuBLAS's handles and every
+        _on / _index constant (made once a device: the first making
+        synchronises the stream, which a capture may not)."""
+        args = self.first(*args[:-1])
+        return self(keys, *args, wopbs.decide_caps(keys, self.wopbs(*args)))
+
+    def dispatch(self, keys: DeviceKeys, tensors: tuple, static=()):
+        """fn(keys, *tensors, *static), graphed (graphs.GRAPHS): its WoPBS
+        caps decided first and part of the graph's key.  Eager (each WoPBS
+        through many_wopbs_jit) on keys with a contraction shard, whose
+        collectives are not captured, and while utils/noise_asserts is
+        armed, whose checks read each WoPBS's input and output on the
+        host."""
+        if keys.shard is not None or noise_asserts.enabled():
+            return self.fn(keys, *tensors, *static)
+        caps = wopbs.decide_caps(keys, self.wopbs(*tensors, *static))
+        return graphs.GRAPHS(self, keys, tensors, static + (caps,),
+                             warm=self.warm)
+
+
+def _key_expansion(keys: DeviceKeys, enc_key, rcon_cts, rcon_fresh: bool):
+    return aes_key_expansion(keys, enc_key, rcon_cts, rcon_fresh=rcon_fresh)
+
+
+_ADD_SCALAR = _Unit(
+    add_scalar_device,
+    lambda state, lut_lsb, luts_rest: _ripple_wopbs(lut_lsb, luts_rest),
+    lambda state, lut_lsb, luts_rest: (state[:1], lut_lsb[:1],
+                                       luts_rest[:, :1]))
+_CTR_STEP = _Unit(
+    ctr_step,
+    lambda rks, iv, lut_lsb, luts_rest: (_ripple_wopbs(lut_lsb, luts_rest)
+                                         + _encrypt_wopbs(lut_lsb.shape[0])),
+    lambda rks, iv, lut_lsb, luts_rest: (rks, iv, lut_lsb[:1],
+                                         luts_rest[:, :1]))
+_ENCRYPT = _Unit(aes_encrypt,
+                 lambda rks, state: _encrypt_wopbs(state.shape[0]),
+                 lambda rks, state: (rks, state[:1]))
+_DECRYPT = _Unit(aes_decrypt,
+                 lambda rks, state: _decrypt_wopbs(state.shape[0]),
+                 lambda rks, state: (rks, state[:1]))
+_KEY_EXPANSION = _Unit(
+    _key_expansion,
+    lambda enc_key, rcon_cts, rcon_fresh: _key_expansion_wopbs(rcon_cts,
+                                                               rcon_fresh),
+    lambda enc_key, rcon_cts, rcon_fresh: (enc_key, rcon_cts[:1],
+                                           rcon_fresh))
+
+
+def add_scalar_device_jit(keys: DeviceKeys, state, lut_lsb, luts_rest):
+    """add_scalar_device as a compiled dispatch unit: the counterpart of
+    tfhe_aes_tpu/models/fhe_aes.add_scalar_device_jit.  Warms up on the
+    first block."""
+    return _ADD_SCALAR.dispatch(keys, (state, lut_lsb, luts_rest))
+
+
+def ctr_step_jit(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
+    """ctr_step as a compiled dispatch unit (tfhe_aes_tpu's ctr_step_jit):
+    its 16 ripple WoPBS and 10 AES rounds one graph a key set and batch.
+    Warms up on the first block."""
+    return _CTR_STEP.dispatch(keys, (round_keys, enc_iv, lut_lsb, luts_rest))
+
+
+def aes_encrypt_jit(keys: DeviceKeys, round_keys, state):
+    """aes_encrypt as a compiled dispatch unit (tfhe_aes_tpu's
+    aes_encrypt_jit).  aes_encrypt(byte_group=) has no unit: its
+    all-gathers are not captured.  Warms up on the first block."""
+    return _ENCRYPT.dispatch(keys, (round_keys, state))
+
+
+def aes_decrypt_jit(keys: DeviceKeys, round_keys, state):
+    """aes_decrypt as a compiled dispatch unit (tfhe_aes_tpu's
+    aes_decrypt_jit).  Warms up on the first block."""
+    return _DECRYPT.dispatch(keys, (round_keys, state))
+
+
+def aes_key_expansion_jit(keys: DeviceKeys, enc_key, rcon_cts=None, *,
+                          rcon_fresh: bool | None = None):
+    """aes_key_expansion as a compiled dispatch unit (tfhe_aes_tpu's
+    aes_key_expansion_jit, rcon_fresh static): one graph a key set and
+    schedule.  rcon_cts None takes the trivial encodings (made before the
+    capture).  Its warm-up call is the schedule's first round (the first
+    row of rcon_cts): every op of the other nine, at a tenth of the
+    cost."""
+    if rcon_fresh is None:
+        rcon_fresh = rcon_cts is not None
+    if rcon_cts is None:
+        rcon_cts = _on(enc_key, trivial_rcon, keys.params)
+    return _KEY_EXPANSION.dispatch(keys, (enc_key, rcon_cts), (rcon_fresh,))
+
+
+def add_scalar(keys: DeviceKeys, state, i_bytes: np.ndarray):
+    """Build the LUTs on the host, run the ripple add on state's device
+    (add_scalar_device_jit)."""
+    lut_lsb, luts_rest = add_scalar_luts(keys.params, i_bytes)
+    return add_scalar_device_jit(keys, state,
+                                 torus.from_u64(lut_lsb, state.device),
+                                 torus.from_u64(luts_rest, state.device))
+
+
 def ctr_keystream(keys: DeviceKeys, round_keys, enc_iv, n_blocks: int,
                   offset: int = 0, *, block_chunk: int | None = None):
     """FHE keystream blocks AES(key, iv + offset + t), t < n_blocks.
 
-    block_chunk=None: one batch (the WoPBS tails chunk themselves by
-    device memory).  An integer gives the JAX package's chunked path
-    (tfhe_aes_tpu/models/fhe_aes.ctr_keystream): up to block_chunk blocks
-    as one batch; above, the ripple add once at the full batch, then AES
-    in balanced chunks of at most block_chunk blocks, the ragged last one
-    wrap-padded with the first blocks.  Both give the same words."""
+    block_chunk=None: one batch, ctr_step_jit (the WoPBS tails chunk
+    themselves by device memory).  An integer gives the JAX package's
+    chunked path (tfhe_aes_tpu/models/fhe_aes.ctr_keystream): up to
+    block_chunk blocks as one batch; above, the ripple add once at the
+    full batch (add_scalar_device_jit), then AES (aes_encrypt_jit) in
+    balanced chunks of at most block_chunk blocks, the ragged last one
+    wrap-padded with the first blocks, so every chunk replays one graph.
+    Both give the same words.  The LUTs are built on the host, outside
+    every unit."""
     lut_lsb, luts_rest = add_scalar_luts(keys.params,
                                          counter_bytes(n_blocks, offset))
     lut_lsb, luts_rest = (torus.from_u64(t, enc_iv.device)
                           for t in (lut_lsb, luts_rest))
     if block_chunk is None or n_blocks <= block_chunk:
-        return ctr_step(keys, round_keys, enc_iv, lut_lsb, luts_rest)
+        return ctr_step_jit(keys, round_keys, enc_iv, lut_lsb, luts_rest)
     state = enc_iv[None].expand((n_blocks,) + enc_iv.shape)
-    state = add_scalar_device(keys, state, lut_lsb, luts_rest)
+    state = add_scalar_device_jit(keys, state, lut_lsb, luts_rest)
     bc = wopbs._chunk_size(n_blocks, block_chunk)
     outs = []
     for lo in range(0, n_blocks, bc):
@@ -384,7 +546,7 @@ def ctr_keystream(keys: DeviceKeys, round_keys, enc_iv, n_blocks: int,
         pad = bc - sl.shape[0]
         if pad:
             sl = torch.cat([sl, state[:pad]])
-        outs.append(aes_encrypt(keys, round_keys, sl)[:bc - pad])
+        outs.append(aes_encrypt_jit(keys, round_keys, sl)[:bc - pad])
     return torch.cat(outs)
 
 

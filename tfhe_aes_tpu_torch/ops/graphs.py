@@ -39,6 +39,15 @@ device of every tensor argument:
     that many.  ``kernel_nodes`` reads the kernel nodes a graph really
     holds, to check those numbers on the card.
 
+A unit may be a whole function that runs many WoPBS (models/fhe_aes's
+``ctr_step_jit``, ``aes_encrypt_jit`` ...).  While a unit's warm-up call or
+its capture runs, the cache marks this thread as inside a unit
+(``inside``): a ``wopbs.many_wopbs_jit`` there runs its WoPBS inline, in
+the unit's warm-up or graph, and a graphed call there raises.  CUDA cannot
+nest captures, and a replay recorded into a capture would read another
+graph's static buffers.  The unit's graph then holds the launches of every
+WoPBS it ran, and each replay adds them all.
+
 One caller at a time per owner: the calls of one key share its static
 buffers.  Captures run with capture_error_mode="thread_local", so a thread
 of the cold-start warm-up (utils/warmup.py) that is still running is not
@@ -165,8 +174,27 @@ class GraphCache:
         self.cuda = CudaCapture()
         self._owners: dict[int, tuple[weakref.ref, dict]] = {}
         self._lock = threading.Lock()
+        self._local = threading.local()
         self.captures = 0
         self.replays = 0
+
+    def inside(self) -> bool:
+        """Whether this thread is running a unit's warm-up call or capture
+        (set by the cache itself, around both)."""
+        return getattr(self._local, "inside", False)
+
+    @contextlib.contextmanager
+    def unit(self):
+        """Mark this thread as inside a unit while the block runs: the
+        cache's own capture does, around the warm-up call and the
+        capture (a stub capture's replay, which runs the function again,
+        does too)."""
+        was = self.inside()
+        self._local.inside = True
+        try:
+            yield
+        finally:
+            self._local.inside = was
 
     def _table(self, owner) -> dict:
         key = id(owner)
@@ -216,6 +244,9 @@ class GraphCache:
         outside any capture."""
         capture = self.capture or (self.cuda if tensors[0].is_cuda
                                    else None)
+        if capture is not None and self.inside():
+            raise RuntimeError("a graphed call inside a unit's warm-up or "
+                               "capture: a nested call must run inline")
         held_owner = weakref.ref(owner)     # a graph may keep `run`
 
         def run(*ts):
@@ -266,7 +297,8 @@ class GraphCache:
                 for w, n in zip(wrappers, held):
                     w.launches -= n         # a capture launches nothing
 
-        graph, output = capture.capture(tensors[0].device, warm, counted)
+        with self.unit():
+            graph, output = capture.capture(tensors[0].device, warm, counted)
         self.captures += 1
         return Graph(graph, inputs, output, tuple(held))
 

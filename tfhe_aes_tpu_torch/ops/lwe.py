@@ -12,6 +12,13 @@ import torch
 from ..utils import torus
 
 
+def lwe_trivial(m: torch.Tensor, n: int) -> torch.Tensor:
+    """The noise-free LWE of body m [...] (torus words): [..., n+1], a zero
+    mask of n words."""
+    z = torch.zeros(m.shape + (n,), dtype=torch.int64, device=m.device)
+    return torch.cat([z, m[..., None].to(torch.int64)], dim=-1)
+
+
 def modswitch(ct: torch.Tensor, two_n: int) -> torch.Tensor:
     """Round torus values to Z_2N: round(x * 2N / 2^64) -> int32 [0, 2N)."""
     shift = 64 - int(np.log2(two_n))

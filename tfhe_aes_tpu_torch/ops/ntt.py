@@ -383,6 +383,31 @@ def mac_batched(plan: NttPlan, dhat: torch.Tensor,
     return _combine_limb_dots(plan, s_ll, s_mid, s_hh)
 
 
+def pointwise_mac(plan: NttPlan, dhat: torch.Tensor,
+                  ghat: torch.Tensor) -> torch.Tensor:
+    """out[k,...,j,n] = sum_r dhat[k,...,r,n] * ghat[k,...,r,j,n] mod p_k,
+    balanced int32: the golden elementwise MAC the limb MACs (mac_shared,
+    mac_batched) are held against.  dhat [P, ..., R, N]; ghat [P, ..., R,
+    J, N].
+
+    Exact int64 arithmetic over the reference's ranges
+    (tfhe_aes_tpu/ops/ntt.pointwise_mac): dhat relaxed-balanced (|.| <=
+    p), ghat balanced (|.| <= p/2), so a product is |t| <= p^2/2 < 2^30
+    (p < 2^15.5, utils/crt.py); reduced to its balanced residue, a sum of
+    R terms is |s| <= R (p-1)/2 (< 2^20 for R < 2^5.5), reduced once more.
+    An odd prime's balanced residue is unique, so these are the
+    reference's words wherever its Barrett steps are exact (|.| < 2^30.9:
+    both reductions above)."""
+    def balanced(x):
+        p = prime_constants(plan, x.device)[0].to(torch.int64).reshape(
+            (plan.n_primes,) + (1,) * (x.dim() - 1))
+        r = torch.remainder(x, p)
+        return torch.where(r > (p - 1) // 2, r - p, r)
+
+    t = dhat.to(torch.int64)[..., :, None, :] * ghat.to(torch.int64)
+    return balanced(balanced(t).sum(dim=-3)).to(I32)
+
+
 def mac_rows(plan: NttPlan, dl: torch.Tensor, dh: torch.Tensor,
              g_rows: torch.Tensor, j_out: int) -> torch.Tensor:
     """NTT-domain external-product MAC against row-major key limbs.

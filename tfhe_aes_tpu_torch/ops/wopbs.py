@@ -6,10 +6,13 @@ vertical-packing tail runs over balanced byte chunks in a Python loop,
 capped by the memory the device can give.  ``many_wopbs`` runs it eagerly;
 ``many_wopbs_jit``, the counterpart of the JAX package's jitted entry
 point, replays a CUDA graph captured once per key set and shape
-(ops/graphs.py).
+(ops/graphs.py), or runs inline inside a whole-function unit's.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -24,6 +27,14 @@ def extract_bits(keys: DeviceKeys, byte_bits_big: torch.Tensor) -> torch.Tensor:
     keyswitch per bit with 1-bit radix blocks)."""
     return keyswitch.keyswitch(keys.params, keys.ksk_limbs, byte_bits_big,
                                keys.shard)
+
+
+def circuit_bootstrap_bits(keys: DeviceKeys,
+                           bits_small: torch.Tensor) -> torch.Tensor:
+    """[B, nbits, n+1] -> GGSW NTT stack [nbits, P, B, R2, k+1, N]."""
+    B, nbits = bits_small.shape[0], bits_small.shape[1]
+    g = cbs_mod.circuit_bootstrap(keys, bits_small.reshape(B * nbits, -1))
+    return g.reshape((g.shape[0], B, nbits) + g.shape[2:]).movedim(2, 0)
 
 
 def _stage_and_pack(keys: DeviceKeys, bigs: torch.Tensor, nbytes: int,
@@ -60,6 +71,61 @@ def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
     free += (torch.cuda.memory_reserved(keys.device)
              - torch.cuda.memory_allocated(keys.device))
     return max(1, min(n_bytes, free // 3 // per_byte))
+
+
+def _cap_key(keys: DeviceKeys, shape: tuple, vp_chunk: int | None) -> tuple:
+    """The memo key of a WoPBS shape's chunk cap: shape is (bytes, LUT
+    outputs, bits a byte)."""
+    return ("wopbs chunk cap",) + tuple(shape) + (vp_chunk, keys.device)
+
+
+def decide_caps(keys: DeviceKeys, shapes) -> tuple:
+    """The chunk cap of each WoPBS shape (bytes, LUT outputs, bits a byte)
+    of a whole-function unit, decided before its capture: ((shape, cap),
+    ...) sorted, a static argument of the unit's graph.  Each is decided
+    once per key set and shape, shared with many_wopbs_jit.
+
+    On a card an undecided cap is read after emptying the allocator's
+    cache: a capture allocates from the graphs' pool, which cannot take
+    the default pool's cached blocks that chunk_bytes counts as free."""
+    emptied = False
+
+    def make(shape):
+        nonlocal emptied
+        if keys.device.type == "cuda" and not emptied:
+            torch.cuda.empty_cache()
+            emptied = True
+        return chunk_bytes(keys, *shape)
+    return tuple(sorted(
+        (shape, graphs.GRAPHS.memo(keys, _cap_key(keys, shape, None),
+                                   lambda shape=shape: make(shape)))
+        for shape in set(shapes)))
+
+
+_unit = threading.local()
+
+
+@contextlib.contextmanager
+def decided_caps(caps: tuple):
+    """The caps (decide_caps) that many_wopbs_jit takes inside a unit's
+    warm-up call and capture, on this thread, while the block runs."""
+    was = getattr(_unit, "caps", None)
+    _unit.caps = dict(caps)
+    try:
+        yield
+    finally:
+        _unit.caps = was
+
+
+def _decided_cap(shape: tuple) -> int:
+    """A WoPBS's cap inside a unit: decided before the capture (nothing in
+    a capture reads the free memory)."""
+    cap = (getattr(_unit, "caps", None) or {}).get(shape)
+    if cap is None:
+        raise RuntimeError(f"no chunk cap was decided for a WoPBS of shape "
+                           f"{shape} (bytes, LUT outputs, bits) before its "
+                           f"unit's capture")
+    return cap
 
 
 def _chunk_size(b: int, target: int) -> int:
@@ -162,15 +228,20 @@ def many_wopbs_jit(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     too (many_wopbs): their ranks agree on the cap with an all-reduce and
     a host read, and sum their products with gloo or NCCL collectives,
     none of which a graph captures here.
+    Inside a whole-function unit's warm-up call or capture
+    (graphs.GRAPHS.inside()) it runs _many_wopbs inline under the cap the
+    unit decided (decided_caps), without the noise checks: the unit's
+    graph holds it.  A unit runs eagerly while the checks are armed.
     """
     if keys.shard is not None:
         return many_wopbs(keys, byte_bits_big, lut_polys, vp_chunk=vp_chunk)
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
-    n_luts = lut_polys.shape[1]
-    cap = graphs.GRAPHS.memo(
-        keys, ("wopbs chunk cap", B, n_luts, nbits, vp_chunk,
-               byte_bits_big.device),
-        lambda: vp_chunk or chunk_bytes(keys, B, n_luts, nbits))
+    shape = (B, lut_polys.shape[1], nbits)
+    if graphs.GRAPHS.inside():
+        return _many_wopbs(keys, byte_bits_big, lut_polys,
+                           vp_chunk or _decided_cap(shape))
+    cap = graphs.GRAPHS.memo(keys, _cap_key(keys, shape, vp_chunk),
+                             lambda: vp_chunk or chunk_bytes(keys, *shape))
     return graphs.GRAPHS(_many_wopbs, keys, (byte_bits_big, lut_polys),
                          (cap,), warm=_one_byte, before=_check_input,
                          after=_check_output)

@@ -4,7 +4,10 @@ Counterpart of tfhe_aes_tpu/server.py: holds only what crosses the trust
 boundary (evaluation keys already on the device they run on, the LWE
 public key, its own randomness) and takes encrypted inputs as int64
 tensors of u64 words on that device.  With the public key it encrypts
-RCON itself, for the reference-faithful key schedule.
+RCON itself, for the reference-faithful key schedule.  Its circuits
+dispatch through the compiled units of models/fhe_aes (aes_encrypt_jit,
+aes_decrypt_jit, aes_key_expansion_jit, ctr_step_jit ...), as the JAX
+server's do.
 """
 
 from __future__ import annotations
@@ -40,17 +43,18 @@ class Server:
         pk_rcon=False: trivial RCON, one WoPBS per round, through
         fhe_aes.aes_key_expansion_staged (all 11 WoPBS one shape, one
         captured graph), as the JAX server dispatches it.
-        pk_rcon=True: RCON encrypted by this server, three per round."""
+        pk_rcon=True: RCON encrypted by this server, three per round,
+        through fhe_aes.aes_key_expansion_jit (one graph)."""
         if not pk_rcon:
             return fhe_aes.aes_key_expansion_staged(self.dkeys, enc_key)
         rcon = torus.from_u64(self.encrypt_rcon(), enc_key.device)
-        return fhe_aes.aes_key_expansion(self.dkeys, enc_key, rcon)
+        return fhe_aes.aes_key_expansion_jit(self.dkeys, enc_key, rcon)
 
     def aes_encrypt(self, round_keys, state):
-        return fhe_aes.aes_encrypt(self.dkeys, round_keys, state)
+        return fhe_aes.aes_encrypt_jit(self.dkeys, round_keys, state)
 
     def aes_decrypt(self, round_keys, state):
-        return fhe_aes.aes_decrypt(self.dkeys, round_keys, state)
+        return fhe_aes.aes_decrypt_jit(self.dkeys, round_keys, state)
 
     def add_scalar(self, state, i_bytes: np.ndarray):
         """Homomorphic counter add (exact per-byte carry)."""

@@ -103,17 +103,22 @@ class Warmup:
         return self.report
 
 
-def precompile(params: ParamSet, n_blocks: int, *, device=None,
+def precompile(params: ParamSet, n_blocks: int, *,
+               block_chunk: int | None = None, device=None,
                report: dict | None = None) -> Warmup:
     """Start the warm-up of `params` on `device` (default: the card;
     raises without one unless device="cpu") in background threads and
     return at once; ``join()`` before the first timed call.
 
-    n_blocks (the CTR batch) is kept for the JAX signature: nothing warmed
-    here depends on the batch.  `report` (optional) is the dict the
+    n_blocks (the CTR batch) and block_chunk (its AES chunks) are kept
+    for the JAX signature: nothing warmed here depends on the batch.  The
+    JAX warm-up compiles ctr_step (or the ripple add and the AES chunk)
+    ahead of the keys; the port's counterpart, a captured graph, belongs
+    to a key set and reads its leaves by address, so nothing of it can be
+    made before the real keys exist.  `report` (optional) is the dict the
     seconds of each target go to, as ``join()`` returns it.
     """
-    del n_blocks
+    del n_blocks, block_chunk
     device = device_mod.resolve(device)
     warm = Warmup(report if report is not None else {})
     builds = []
