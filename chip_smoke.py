@@ -32,10 +32,11 @@ the script exits non-zero:
      the pk-RCON key expansion) are replays of whole-function CUDA graphs
      (models/fhe_aes's ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit,
      aes_key_expansion_jit), captured at the first call of a key set and
-     shape, every WoPBS inside inline; the trivial key expansion, phase 8
-     (a)'s circuits and phase 6's run with the noise checks armed replay a
-     graph a WoPBS (ops/graphs.py); phase 8 (b)'s sharded keys and the
-     noise study (phase 9) run eagerly;
+     shape, every WoPBS inside inline, and so is phase 8's mesh function
+     over NCCL, its collectives inside (parallel/mesh.sharded_ctr_fn);
+     the trivial key expansion and phase 6's run with the noise checks
+     armed replay a graph a WoPBS (ops/graphs.py); phase 8 (b)'s gloo
+     ranks and the noise study (phase 9) run eagerly;
   4. device keygen: PARAM_TOY on the card equals the CPU leaf by leaf;
      PARAM_TPU timed beside phase 1's host keygen; its keys saved to the
      key cache in a temporary directory and loaded back to equal leaves;
@@ -52,10 +53,19 @@ the script exits non-zero:
      card; each JSON line parsed;
   8. the mesh: (a) the multi-process CTR launcher with one rank a card
      over NCCL, PARAM_TPU, 8 blocks, keys from phase 7's cache, every
-     block verified by its rank; (b) two ranks on the one card over gloo,
-     dp=1 x mp=2 with the keyswitch keys' contraction rows and each
-     round's bytes split between them, PARAM_TOY, 2 blocks: equal word
-     for word to the one-rank ctr_keystream on the same keys;
+     block verified by its rank, each rank's mesh function one graph
+     (first call and timed replay printed, with its peak memory); (b) two
+     ranks on the one card over gloo, dp=1 x mp=2 with the keyswitch
+     keys' contraction rows and each round's bytes split between them,
+     PARAM_TOY, 2 blocks: equal word for word to the one-rank
+     ctr_keystream on the same keys, eager (gloo is not capturable);
+     (c) one spawned rank on a one-rank NCCL world, dp=1 x mp=1,
+     contraction rows and bytes sharded, PARAM_TPU, 8 blocks, phase 7's
+     keys: the graphed mesh function's first call and two replays equal
+     to ctr_keystream in this process word for word and decrypting to
+     AES; one capture, three replays, its held launches against its
+     WoPBS, counts and kernel nodes; NCCL's copy nodes in its DOT dump,
+     the ten byte all-gathers' among them;
   9. the measured noise study (python -m tfhe_aes_tpu_torch.noise_study)
      at PARAM_TPU and PARAM_OPT on phase 7's seed-0 caches: 4096 boolean
      PBS and a 512-byte identity-LUT WoPBS each, every sigma printed
@@ -93,8 +103,8 @@ the script exits non-zero:
      1 and 8 again, the allocated and reserved memory after each beside
      the bytes of the new graph's static buffers.
 Every launch count is read from zero around one run of a path (phases 3,
-5 and 6; each of phase 7's two bench runs; each of phase 8's (a) and (b),
-whose ranks count their own and report them; each of phase 9's two study
+5 and 6; each of phase 7's two bench runs; each of phase 8's (a), (b)
+and (c), whose ranks count their own and report them; each of phase 9's two study
 runs, summed; phase 10's two CLI processes, each counting its own and
 summed; phase 11, eager and graphed calls together; phase 12, the
 same); a replay counts
@@ -118,6 +128,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -470,7 +481,7 @@ def _toy_mesh_rank(rank, out_dir, port) -> None:
     import numpy as np
     import torch
     from tfhe_aes_tpu_torch.client.client import Client
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp, graphs
     from tfhe_aes_tpu_torch.parallel import mesh
     from tfhe_aes_tpu_torch.params import PARAM_TOY
 
@@ -491,9 +502,199 @@ def _toy_mesh_rank(rank, out_dir, port) -> None:
         launches = {name: w.launches for name, w in wrappers.items()}
         np.save(os.path.join(out_dir, f"out{rank}.npy"), whole)
         with open(os.path.join(out_dir, f"launches{rank}.json"), "w") as f:
-            json.dump(launches, f)
+            json.dump({"launches": launches,
+                       "capturable": graphs.capturable(m.mp_group),
+                       "captures": graphs.GRAPHS.captures}, f)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _nccl_mesh_rank(rank, out_dir, port) -> None:
+    """Phase 8 (c), the rank of a one-rank NCCL world: dp=1 x mp=1,
+    contraction rows and bytes sharded, PARAM_TPU keys from phase 7's
+    cache.  The graphed sharded_ctr_fn's first call on inputs A, then
+    replays on B and A; saves the three keystreams and a record of the
+    graph: its calls, launches, kernel and copy nodes, times, memory."""
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import fhe_aes
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp, graphs
+    from tfhe_aes_tpu_torch.parallel import mesh
+    from tfhe_aes_tpu_torch.params import PARAM_TPU
+    from tfhe_aes_tpu_torch.utils import serialization
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    p = PARAM_TPU
+    m = mesh.make_mesh(n_dp=1, n_mp=1)
+    try:
+        client = Client(p, seed=0)
+        client.sk, raw = serialization.load_keys(
+            serialization.cache_path(p, 0))
+        skeys = mesh.shard_keys(m, raw, shard_contractions=True)
+        del raw
+        x = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(out_dir, "in.npz")).items()}
+        fn = mesh.sharded_ctr_fn(m, skeys, MESH_BLOCKS, shard_bytes=True)
+        wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
+                    "vertical_packing": cuda_vp.vp_rotations_cuda}
+        graphs.GRAPHS.cuda.keep = True          # for the graph's DOT dump
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(wrappers)
+        counts, times = [], []
+        for i, s in enumerate("ABA"):
+            (out, _), ms = _timed(fn, x["rks"], x["iv"], x[f"lut_lsb{s}"],
+                                  x[f"luts_rest{s}"])
+            np.save(os.path.join(out_dir, f"out{i}.npy"), out.cpu().numpy())
+            counts.append([w.launches for w in wrappers.values()])
+            times.append(ms)
+        peak = _peak_gib()
+        ((key, graph),) = graphs.GRAPHS.graphs(skeys).items()
+        unit, static = key[0], key[1]
+        rot, vp, vp_bits = _unit_launches(p, unit, graph, static)
+        warm = sum(unit.wopbs(*unit.first(*graph.inputs,
+                                          *static[:-1])).values())
+        n_nodes = _check_graph_nodes(graph, p, vp_bits, "phase 8 (c)")
+        with tempfile.TemporaryDirectory() as tmp:
+            copies = graphs.memcpy_nodes(graph, os.path.join(tmp, "g.dot"))
+        n_bytes = 16 * MESH_BLOCKS          # the one 'mp' rank's bytes
+        big1 = p.big_lwe_dimension + 1
+        gathers = {L: n_bytes * L * big1 * 8 for L in (24, 8)}
+        record = {
+            "unit": unit is fhe_aes._CTR_STEP, "caps": static[-1],
+            "captures": graphs.GRAPHS.captures,
+            "replays": graphs.GRAPHS.replays, "held": list(graph.held),
+            "want_held": [rot, vp], "warm_wopbs": warm, "counts": counts,
+            "ms": times, "kernel_nodes": n_nodes, "peak": peak,
+            "gather_bytes": gathers,
+            "gather_nodes": {L: copies.get(("default (DEVICE to DEVICE)", b),
+                                           0) for L, b in gathers.items()},
+            "nccl_copies": sorted([k[1], n] for k, n in copies.items()
+                                  if k[0].startswith("default")),
+            "torch_copies": sum(n for k, n in copies.items()
+                                if not k[0].startswith("default"))}
+        with open(os.path.join(out_dir, "record.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawn(target, nprocs: int, out_dir: str, what: str, timeout: float):
+    """Run target(rank, out_dir, port) in nprocs spawned processes to their
+    end; the seconds it took."""
+    import torch.multiprocessing as tmp
+    from tfhe_aes_tpu_torch.parallel.multihost_ctr import free_port
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(target, args=(out_dir, free_port()),
+                              nprocs=nprocs, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: the ranks did not end")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return time.perf_counter() - t0
+
+
+def _nccl_mesh_phase(dev, wrappers) -> dict:
+    """Phase 8 (c): the graphed mesh function on a one-rank NCCL world,
+    contraction rows and bytes sharded, PARAM_TPU, phase 7's keys; its
+    first call and two replays against ctr_keystream in this process on
+    the same keys and inputs, word for word, decrypting to AES.  Returns
+    its launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from tfhe_aes_tpu_torch.client.client import Client
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.params import PARAM_TPU
+    from tfhe_aes_tpu_torch.utils import serialization, torus
+
+    p = PARAM_TPU
+    client = Client(p, seed=0)
+    client.sk, keys = serialization.load_keys(serialization.cache_path(p, 0))
+    keys = keys.to(dev)
+    rks = np.stack([np.stack([client.encrypt_byte(b) for b in rk]) for rk in
+                    aes_plain.key_expansion(aes_plain.u128_to_bytes_be(KEY))])
+    enc_iv = client.encrypt_u128(IV)
+    offsets = {"A": 0, "B": 0x1FE}          # B's counter add carries
+    inputs = {"rks": rks, "iv": enc_iv}
+    want = {}
+    t0 = time.perf_counter()
+    for s, off in offsets.items():
+        inputs[f"lut_lsb{s}"], inputs[f"luts_rest{s}"] = \
+            fhe_aes.add_scalar_luts(p, fhe_aes.counter_bytes(MESH_BLOCKS,
+                                                             off))
+        want[s] = torus.to_u64(fhe_aes.ctr_keystream(
+            keys, torus.from_u64(rks, dev), torus.from_u64(enc_iv, dev),
+            MESH_BLOCKS, off))
+        client.decrypt_and_verify_ctr(want[s], KEY, IV, offset=off)
+    ref_s = time.perf_counter() - t0
+    del keys
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="tfhe_aes_smoke_nccl_")
+    try:
+        np.savez(os.path.join(out_dir, "in.npz"), **{
+            k: np.ascontiguousarray(v, np.uint64).view(np.int64)
+            for k, v in inputs.items()})
+        wall = _spawn(_nccl_mesh_rank, 1, out_dir, "phase 8 (c)", 600)
+        with open(os.path.join(out_dir, "record.json")) as f:
+            rec = json.load(f)
+        for i, s in enumerate("ABA"):
+            got = np.load(os.path.join(out_dir, f"out{i}.npy")).view(np.uint64)
+            what = "first call" if i == 0 else f"replay {i}"
+            if not np.array_equal(got, want[s]):
+                raise AssertionError(f"phase 8 (c): the {what} ({s}) differs "
+                                     f"from ctr_keystream")
+            client.decrypt_and_verify_ctr(got, KEY, IV, offset=offsets[s])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    held, counts = tuple(rec["held"]), [tuple(c) for c in rec["counts"]]
+    steps = [tuple(b - a for a, b in zip(x, y))
+             for x, y in zip(counts, counts[1:])]
+    warm = tuple(c - h for c, h in zip(counts[0], held))
+    if not rec["unit"] or (rec["captures"], rec["replays"]) != (1, 3) \
+            or held != tuple(rec["want_held"]) or steps != [held, held] \
+            or warm[0] != rec["warm_wopbs"] * p.cbs_level \
+            or warm[1] < rec["warm_wopbs"]:
+        raise AssertionError(f"phase 8 (c): not one graph captured at the "
+                             f"first call and replayed, holding its WoPBS "
+                             f"launches: {rec}")
+    gathers = rec["gather_nodes"]
+    if gathers != {"24": 9, "8": 1}:
+        raise AssertionError(f"phase 8 (c): the graph does not hold the "
+                             f"byte all-gathers' copies: {gathers} "
+                             f"(NCCL's copies {rec['nccl_copies']})")
+    path = "mesh (c) NCCL one rank, graphed (phase 8)"
+    counts_c = dict(zip(wrappers, counts[-1]))
+    print(f"phase 8: (c) 1 rank over NCCL, dp=1 x mp=1, contraction rows and "
+          f"bytes sharded, PARAM_TPU, {MESH_BLOCKS} blocks: first call (A) "
+          f"and replays (B, A) == ctr_keystream word for word, decrypt to "
+          f"AES; first call {rec['ms'][0]:.1f} ms (a warm-up call on the "
+          f"first block, the capture, a replay), replays "
+          f"{rec['ms'][1]:.1f} / {rec['ms'][2]:.1f} ms; the reference's "
+          f"two ctr_keystream calls {ref_s:.1f} s; whole rank {wall:.1f} s")
+    print(f"phase 8: (c) one graph (captures {rec['captures']}, replays "
+          f"{rec['replays']}), caps {rec['caps']}; launches a replay "
+          f"{dict(zip(wrappers, held))} = its WoPBS', {rec['kernel_nodes']} "
+          f"kernel nodes of theirs in the graph; the warm-up's {warm}; "
+          f"launches {counts_c}; peak allocated / reserved {rec['peak']} "
+          f"(the 64-block bench in PERF.md: 19.41 / 22.84 GiB)")
+    print(f"phase 8: (c) NCCL's nodes in the graph (one rank: copies of kind "
+          f"default, [bytes, count]): {rec['nccl_copies']}; the byte "
+          f"all-gathers' {gathers} at {rec['gather_bytes']} bytes (L=24, "
+          f"L=8); the in-place all-reduces leave none; torch's own copies "
+          f"{rec['torch_copies']}")
+    return {path: counts_c}
 
 
 def _mesh_phase(dev, wrappers) -> dict:
@@ -503,10 +704,8 @@ def _mesh_phase(dev, wrappers) -> dict:
     of (b), each summed over its ranks, by path."""
     import numpy as np
     import torch
-    import torch.multiprocessing as tmp
     from tfhe_aes_tpu_torch.client.client import Client
     from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
-    from tfhe_aes_tpu_torch.parallel.multihost_ctr import free_port
     from tfhe_aes_tpu_torch.params import PARAM_TOY
     from tfhe_aes_tpu_torch.utils import torus
 
@@ -526,6 +725,16 @@ def _mesh_phase(dev, wrappers) -> dict:
         raise AssertionError(f"launcher failed (rc {r.returncode})")
     records = [json.loads(ln) for ln in r.stdout.splitlines()
                if ln.startswith("{")]
+    # Each rank's first call (a warm-up call, the capture, a replay) and
+    # its timed run (a replay), from its stderr.
+    ranks = re.findall(
+        r"# proc (\d+): first call ([\d.]+) s, timed run ([\d.]+) s; graphs "
+        r"captured (\d+), replayed (\d+); peak device memory ([\d.]+) GiB "
+        r"\(reserved ([\d.]+)\)", r.stderr)
+    if len(ranks) != procs or any((c, rp) != ("1", "2")
+                                  for _, _, _, c, rp, _, _ in ranks):
+        raise AssertionError(f"phase 8 (a): not one graph a rank, captured "
+                             f"at the first call and replayed: {ranks}")
     path_a = "mesh (a) launcher (phase 8)"
     counts_a = {name: sum(rec["launches"][name] for rec in records)
                 for name in wrappers}
@@ -537,6 +746,12 @@ def _mesh_phase(dev, wrappers) -> dict:
           f"{MESH_BLOCKS} blocks: {MESH_BLOCKS / slowest * 60.0:.2f} "
           f"blocks/min (timed run {slowest} s, the slowest rank), {want}; "
           f"whole launcher {wall:.1f} s; launches {counts_a}")
+    for rank, first_s, timed_s, _, _, alloc, reserved in ranks:
+        print(f"phase 8: (a) rank {rank}: graphed, first call {first_s} s "
+              f"(a warm-up call on the first block, the capture, a "
+              f"replay), timed run {timed_s} s (a replay); peak allocated "
+              f"/ reserved {alloc} / {reserved} GiB (the 64-block bench "
+              f"in PERF.md: 19.41 / 22.84)")
 
     # (b): the same keys and inputs in this process, one rank, as the
     # reference; the two ranks make their keys from the same seed (and
@@ -558,20 +773,7 @@ def _mesh_phase(dev, wrappers) -> dict:
             k: np.ascontiguousarray(v, np.uint64).view(np.int64)
             for k, v in (("rks", rks), ("iv", enc_iv), ("lut_lsb", lut_lsb),
                          ("luts_rest", luts_rest))})
-        t0 = time.perf_counter()
-        ctx = tmp.start_processes(_toy_mesh_rank, args=(out_dir, free_port()),
-                                  nprocs=2, join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        try:
-            while not ctx.join(timeout=5):
-                if time.monotonic() > deadline:
-                    raise TimeoutError("phase 8 (b): the ranks did not end")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join()
-        wall = time.perf_counter() - t0
+        wall = _spawn(_toy_mesh_rank, 2, out_dir, "phase 8 (b)", 300)
         counts_b = {name: 0 for name in wrappers}
         for rank in range(2):
             got = np.load(os.path.join(out_dir, f"out{rank}.npy"))
@@ -579,14 +781,20 @@ def _mesh_phase(dev, wrappers) -> dict:
                 raise AssertionError(f"phase 8 (b): rank {rank}'s keystream "
                                      f"differs from the one-rank one")
             with open(os.path.join(out_dir, f"launches{rank}.json")) as f:
-                for name, n in json.load(f).items():
-                    counts_b[name] += n
+                rec = json.load(f)
+            for name, n in rec["launches"].items():
+                counts_b[name] += n
+            if rec["capturable"] or rec["captures"]:
+                raise AssertionError(f"phase 8 (b): rank {rank} captured "
+                                     f"over gloo: {rec}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"phase 8: (b) 2 ranks on one card over gloo, dp=1 x mp=2, "
           f"contraction rows and bytes sharded, PARAM_TOY, "
           f"{TOY_MESH_BLOCKS} blocks: both ranks == the one-rank "
-          f"ctr_keystream word for word, decrypts to AES; {wall:.1f} s")
+          f"ctr_keystream word for word, decrypts to AES; {wall:.1f} s; "
+          f"eager by the group's backend (graphs.capturable: False for "
+          f"gloo), no graph captured")
     # The VP kernel runs only at cbs_level 1: (b)'s path never launches it;
     # (a) and phase 7 carry it.
     path_b = "mesh (b) gloo dp=1 x mp=2 (phase 8)"
@@ -595,7 +803,8 @@ def _mesh_phase(dev, wrappers) -> dict:
     print(f"phase 8: (b) launches {counts_b}; vertical_packing is not on "
           f"this path (PARAM_TOY has cbs_level {PARAM_TOY.cbs_level}, the "
           f"VP kernel runs at cbs_level 1 only)")
-    return {path_a: counts_a, path_b: counts_b}
+    return {path_a: counts_a, path_b: counts_b,
+            **_nccl_mesh_phase(dev, wrappers)}
 
 
 def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
@@ -1276,6 +1485,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"nccl {'.'.join(map(str, torch.cuda.nccl.version()))} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     runtime.get_lib()                   # raises if the host runtime fails

@@ -433,3 +433,63 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
                   "vp_inverse_crt_kernel": bits}
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want_nodes} == want_nodes
+
+
+def test_one_rank_nccl_mesh_is_one_graph_equal_to_ctr_keystream(
+        dev, monkeypatch, tmp_path):
+    """parallel/mesh.sharded_ctr_fn on a one-rank NCCL world, dp=1 x mp=1,
+    contraction rows and bytes sharded, at a cbs_level=1 toy set: its
+    first call captures one graph of the CTR unit, a second call on other
+    counters replays it, both equal to ctr_keystream word for word; a
+    replay adds the graph's launches, one rotate and one VP call a WoPBS;
+    the graph holds the ten byte all-gathers, each a copy NCCL makes."""
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.ops import graphs
+    from tfhe_aes_tpu_torch.parallel import mesh
+    from tfhe_aes_tpu_torch.parallel.multihost_ctr import free_port
+    monkeypatch.setattr(graphs.GRAPHS.cuda, "keep", True)
+    for name, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                            MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(name, value)
+    p, n = PARAM_TOY_VP, 2
+    client, keys = _keys(p, 11, dev)
+    rks = torus.from_u64(np.stack([
+        np.stack([client.encrypt_byte(b) for b in rk]) for rk in
+        aes_plain.key_expansion(aes_plain.u128_to_bytes_be(0x2B7E1516))]),
+        dev)
+    iv = torus.from_u64(client.encrypt_u128(0xFF), dev)
+    offsets = {"A": 0, "B": 0x1FE}
+    lut = {s: tuple(torus.from_u64(t) for t in fhe_aes.add_scalar_luts(
+        p, fhe_aes.counter_bytes(n, off))) for s, off in offsets.items()}
+    want = {s: fhe_aes.ctr_keystream(keys, rks, iv, n, off)
+            for s, off in offsets.items()}
+    m = mesh.make_mesh(n_dp=1, n_mp=1)
+    try:
+        assert graphs.capturable(m.mp_group)
+        skeys = mesh.shard_keys(m, keys, shard_contractions=True)
+        fn = mesh.sharded_ctr_fn(m, skeys, n, shard_bytes=True)
+        captures, replays = graphs.GRAPHS.captures, graphs.GRAPHS.replays
+        first, lo = fn(rks, iv, *lut["B"])
+        ((key, graph),) = graphs.GRAPHS.graphs(skeys).items()
+        wrappers = graphs.kernel_counters()
+        counts = [w.launches for w in wrappers]
+        second, _ = fn(rks, iv, *lut["A"])
+        assert [w.launches - c for w, c in zip(wrappers, counts)] == \
+            list(graph.held)
+        assert (graphs.GRAPHS.captures - captures,
+                graphs.GRAPHS.replays - replays) == (1, 2)
+        torch.cuda.synchronize()
+        assert lo == 0
+        assert torch.equal(first, want["B"]) and torch.equal(second,
+                                                             want["A"])
+        assert key[0] is fhe_aes._CTR_STEP and key[1][0] is m.mp_group
+        n_wopbs = sum(key[0].wopbs(*graph.inputs, *key[1][:-1]).values())
+        assert graph.held == (n_wopbs, n_wopbs) == (26, 26)
+        copies = graphs.memcpy_nodes(graph, tmp_path / "graph.dot")
+        big1 = p.big_lwe_dimension + 1
+        assert {L: copies[("default (DEVICE to DEVICE)",
+                           16 * n * L * big1 * 8)] for L in (24, 8)} == \
+            {24: 9, 8: 1}
+    finally:
+        torch.distributed.destroy_process_group()

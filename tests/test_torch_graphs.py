@@ -24,6 +24,7 @@ from tfhe_aes_tpu.params import PARAM_TOY
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes, tables
 from tfhe_aes_tpu_torch.ops import graphs, modular, ntt, wopbs
+from tfhe_aes_tpu_torch.ops.keys import ContractionShard
 from tfhe_aes_tpu_torch.server import Server
 from tfhe_aes_tpu_torch.utils import noise_asserts, torus
 
@@ -338,8 +339,9 @@ def test_graphed_wopbs_keeps_the_eager_noise_checks(toy, monkeypatch):
 
 
 def test_sharded_keys_run_eagerly(toy, monkeypatch):
-    """Keys with a contraction shard never reach the graph cache: their
-    collectives are not captured."""
+    """Keys with a contraction shard whose group a capture cannot hold
+    (a stand-in here, gloo's in tests/test_torch_mesh.py) never reach the
+    graph cache."""
     _, _, tc, td = toy(PARAM_TOY)
     cache = graphs.GraphCache(capture=StubCapture(fail=True))
     monkeypatch.setattr(graphs, "GRAPHS", cache)
@@ -351,6 +353,35 @@ def test_sharded_keys_run_eagerly(toy, monkeypatch):
     assert wopbs.many_wopbs_jit(sharded, cts, lut, vp_chunk=3) == "eager"
     assert calls == [{"vp_chunk": 3}]
     assert len(cache) == 0 and cache.captures == 0
+
+
+def test_sharded_keys_over_a_capturable_group_are_graphed(toy,
+                                                          monkeypatch):
+    """many_wopbs_jit on keys whose shard's group a capture can hold: one
+    graph, its cap the one agreed over the group at the first call (one
+    agree_min, outside the capture), never read again."""
+    _, _, tc, td = toy(PARAM_TOY)
+    stub = StubCapture()
+    monkeypatch.setattr(graphs, "GRAPHS", graphs.GraphCache(capture=stub))
+    group = object()
+    monkeypatch.setattr(graphs, "capturable", lambda g: g is group)
+    agreed = []
+    monkeypatch.setattr(ContractionShard, "agree_min",
+                        lambda shard, n, device: agreed.append(
+                            (n, stub.captured)) or 1)
+    cuts = []
+    monkeypatch.setattr(wopbs, "_many_wopbs", lambda k, x, lut, cap: (
+        cuts.append(cap), torch.zeros((x.shape[0], lut.shape[1],
+                                       x.shape[-1]), dtype=torch.int64))[1])
+    sharded = dataclasses.replace(td, shard=ContractionShard(
+        group, slice(0, 1), slice(0, 1)))
+    cts, lut = _sbox_inputs(tc, PARAM_TOY, (1, 2, 3))
+    for _ in range(3):
+        wopbs.many_wopbs_jit(sharded, cts, lut)
+    assert agreed == [(3, 0)]           # the CPU's cap: every byte
+    assert stub.captured == 1 and graphs.GRAPHS.replays == 3
+    ((key, _),) = graphs.GRAPHS.graphs(sharded).items()
+    assert key[1] == (1,) and set(cuts) == {1}
 
 
 def test_the_chunk_cap_is_decided_once_and_keyed(toy, monkeypatch):

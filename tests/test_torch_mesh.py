@@ -1,12 +1,17 @@
 """The torch port's device mesh (parallel/mesh.py) on the CPU, in real
 gloo worlds of spawned processes, against the JAX package and the
-unsharded port at PARAM_DRYRUN."""
+unsharded port at PARAM_DRYRUN.
+
+The card's capture cannot run here: the graphed mesh function runs
+through a stub capture that serves CPU tensors (as in
+tests/test_torch_units.py), with the gloo groups taken as capturable."""
 
 import dataclasses
 import json
 import multiprocessing
 import os
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -14,6 +19,7 @@ import torch
 
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.models import luts
+from tfhe_aes_tpu_torch.ops import graphs
 from tfhe_aes_tpu_torch.ops import keys as keys_mod
 from tfhe_aes_tpu_torch.ops import wopbs
 from tfhe_aes_tpu_torch.parallel import mesh
@@ -79,9 +85,77 @@ def test_make_mesh_8_ranks(tmp_path):
                        "dp": rank // 2, "mp": rank % 2, "device": "cpu"}
 
 
+class StubCapture:
+    """Capture by recording: warm() eagerly, then the captured call once;
+    its replay runs the captured call again on the static inputs, inside
+    the unit, and writes the static output, as a graph's replay does."""
+
+    def __init__(self):
+        self.warmed = self.captured = 0
+
+    def capture(self, device, warm, fn):
+        self.warmed += 1
+        warm()
+        self.captured += 1
+        output = fn()
+
+        def replay():
+            with graphs.GRAPHS.unit():
+                output.copy_(fn())
+        return types.SimpleNamespace(replay=replay), output
+
+
+def _graphed_run(m, skeys, x):
+    """The mesh function through the graph cache with a stub capture, the
+    gloo groups taken as capturable, each 'mp' rank choosing its own tail
+    chunks (a third of the bytes on one, a half on the other), as ranks
+    whose free memory differs would: two calls, gathered; what the
+    ranks agreed and what the WoPBS saw."""
+    stub = StubCapture()
+    graphs.GRAPHS = graphs.GraphCache(capture=stub)
+    graphs.capturable = lambda group: True
+    chosen = {}
+
+    def chunk_bytes(keys, n_bytes, n_luts, nbits):
+        chosen[(n_bytes, n_luts, nbits)] = max(1, n_bytes // (2 + m.mp_rank))
+        return chosen[(n_bytes, n_luts, nbits)]
+    wopbs.chunk_bytes = chunk_bytes
+    agreed = []
+    agree_min = keys_mod.ContractionShard.agree_min
+
+    def counted(shard, n, device):
+        agreed.append(n)
+        return agree_min(shard, n, device)
+    keys_mod.ContractionShard.agree_min = counted
+    split, cuts = set(), set()
+    many = wopbs._many_wopbs
+
+    def seen(keys, byte_bits_big, lut_polys, cap):
+        if keys.shard.split_batch:
+            split.add(id(keys))
+        cuts.add((byte_bits_big.shape[0], lut_polys.shape[1],
+                  byte_bits_big.shape[1], cap))
+        return many(keys, byte_bits_big, lut_polys, cap)
+    wopbs._many_wopbs = seen
+    fn = mesh.sharded_ctr_fn(m, skeys, N_BLOCKS, shard_bytes=True)
+    wholes, n_agreed = [], []
+    for _ in range(2):
+        local, _ = fn(x["rks"], x["iv"], x["lut_lsb"], x["luts_rest"])
+        wholes.append(mesh.gather_blocks(m, local))
+        n_agreed.append(len(agreed))
+    ((key, _),) = graphs.GRAPHS.graphs(skeys).items()
+    return dict(
+        graphed=torch.stack(wholes).numpy(), n_agreed=n_agreed,
+        runs=(stub.warmed, stub.captured, graphs.GRAPHS.captures,
+              graphs.GRAPHS.replays),
+        caps=json.dumps(key[1][-1]), chosen=json.dumps(sorted(
+            chosen.items())), cuts=json.dumps(sorted(cuts)),
+        split_once=split == {id(skeys.split_batch_keys)})
+
+
 def _sharded_world(out_dir):
-    """dp=2 x mp=2: the sharded CTR keystream, gathered, and the
-    contraction-sharded many_wopbs next to the unsharded one."""
+    """dp=2 x mp=2: the sharded CTR keystream, gathered, eager and graphed,
+    and the contraction-sharded many_wopbs next to the unsharded one."""
     m = mesh.make_mesh(n_dp=2, n_mp=2, device="cpu")
     rank = torch.distributed.get_rank()
     keys = Client(tiny_params(), seed=0).make_device_keys(fast=False,
@@ -99,11 +173,13 @@ def _sharded_world(out_dir):
     fn = mesh.sharded_ctr_fn(m, skeys, N_BLOCKS, shard_bytes=True)
     local, first = fn(x["rks"], x["iv"], x["lut_lsb"], x["luts_rest"])
     whole = mesh.gather_blocks(m, local)
+    eager = (graphs.capturable(m.mp_group), len(graphs.GRAPHS))
     np.savez(out_dir / f"out{rank}.npz", whole=whole.numpy(),
              wopbs_equal=torch.equal(got, want),
              chunked_equal=torch.equal(chunked, want),
              ksk_rows=skeys.ksk_limbs.shape[0],
-             pfpksk_rows=skeys.pfpksk_limbs.shape[0], first=first)
+             pfpksk_rows=skeys.pfpksk_limbs.shape[0], first=first,
+             eager=eager, **_graphed_run(m, skeys, x))
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +246,58 @@ def test_contraction_sharded_wopbs_with_unequal_chunks(sharded):
     the result is still the unsharded one."""
     outs, _, _, _ = sharded
     assert all(o["chunked_equal"] for o in outs)
+
+
+def test_gloo_is_not_capturable_and_runs_eagerly(sharded):
+    """Over gloo the mesh function never reaches the graph cache."""
+    outs, _, _, _ = sharded
+    for o in outs:
+        assert o["eager"].tolist() == [False, 0]
+
+
+def test_graphed_mesh_equals_eager_and_jax(sharded):
+    """Through the graph cache (a stub capture, the groups taken as
+    capturable), both calls give every rank the eager keystream, the JAX
+    package's ctr_keystream word for word."""
+    outs, want, _, _ = sharded
+    for rank, o in enumerate(outs):
+        for graphed in o["graphed"]:
+            assert np.array_equal(graphed, o["whole"]), rank
+            assert np.array_equal(graphed.view(np.uint64), want), rank
+
+
+def test_graphed_mesh_captures_once_then_replays(sharded):
+    """The first call runs a warm-up call and captures one graph, then
+    replays it; the second call only replays.  agree_min runs once a
+    WoPBS shape at the first call (the warm-up's first block is the
+    slice's one block here: the same shapes), never in the replay."""
+    outs, _, _, _ = sharded
+    for o in outs:
+        assert o["runs"].tolist() == [1, 1, 1, 2]
+        shapes = len(json.loads(str(o["caps"])))
+        assert shapes == 4
+        assert o["n_agreed"].tolist() == [shapes, shapes]
+
+
+def test_graphed_mesh_ranks_cut_the_same_chunks(sharded):
+    """Each 'mp' rank alone would cut other tail chunks: the caps are
+    agreed once, before the warm-up call, the least of the pair's; every
+    WoPBS of both ranks ran under them; the split-batch keys were one
+    object across the rounds and the calls."""
+    outs, _, _, _ = sharded
+    for dp in range(2):
+        pair = outs[2 * dp:2 * dp + 2]
+        caps = [dict((tuple(s), c) for s, c in json.loads(str(o["caps"])))
+                for o in pair]
+        chosen = [dict((tuple(s), c) for s, c in json.loads(str(o["chosen"])))
+                  for o in pair]
+        assert caps[0] == caps[1]
+        assert caps[0] == {s: min(c[s] for c in chosen) for s in caps[0]}
+        assert any(chosen[0][s] != caps[0][s] for s in caps[0])
+        for o in pair:
+            assert {tuple(c) for c in json.loads(str(o["cuts"]))} == \
+                {(*s, c) for s, c in caps[0].items()}
+            assert o["split_once"]
 
 
 def test_row_share_splits_like_tensor_split():

@@ -32,6 +32,7 @@ from tfhe_aes_tpu.params import PARAM_TOY
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes, tables
 from tfhe_aes_tpu_torch.ops import graphs, wopbs
+from tfhe_aes_tpu_torch.ops.keys import ContractionShard
 from tfhe_aes_tpu_torch.server import Server
 from tfhe_aes_tpu_torch.utils import noise_asserts, torus
 
@@ -433,6 +434,122 @@ def test_sharded_keys_run_a_unit_eagerly(stub, fake_wopbs, monkeypatch):
     fhe_aes.ctr_step_jit(keys, *_fake_ctr_args(2))
     assert len(calls) == 26 and fake_wopbs == []
     assert len(stub.cache) == 0 and stub.cache.captures == 0
+
+
+# -- sharded keys over a capturable group -------------------------------------
+
+GROUP = object()        # a stand-in process group, taken as capturable
+
+
+@pytest.fixture
+def agreed(monkeypatch, fake_wopbs):
+    """GROUP capturable (and nothing else); the shard's agree_min records
+    each cap it is given and returns the least of it and 3, as peers
+    with smaller caps would.  Returns the recorded caps."""
+    monkeypatch.setattr(graphs, "capturable", lambda group: group is GROUP)
+    agreed = []
+    monkeypatch.setattr(ContractionShard, "agree_min",
+                        lambda shard, n, device: agreed.append(n)
+                        or min(n, 3))
+    return agreed
+
+
+def _sharded(keys):
+    keys.shard = ContractionShard(GROUP, slice(0, 1), slice(0, 1))
+    return keys
+
+
+def test_only_an_nccl_group_is_capturable():
+    """A stand-in is no process group: eager, as a gloo group is (held in
+    tests/test_torch_mesh.py's world, NCCL's on the card)."""
+    assert not graphs.capturable(None)
+    assert not graphs.capturable(object())
+    keys = FakeKeys()
+    assert wopbs.graphable(keys)
+    keys.shard = object()
+    assert not wopbs.graphable(keys)
+    keys.shard = ContractionShard(object(), slice(0, 1), slice(0, 1))
+    assert not wopbs.graphable(keys)
+
+
+def test_sharded_keys_over_a_capturable_group_reach_the_cache(
+        stub, fake_wopbs, agreed, monkeypatch):
+    """ctr_step_jit on keys whose shard's group a capture can hold: one
+    warm-up call, one capture, replays; every WoPBS inline, under the
+    agreed caps, none through many_wopbs."""
+    keys = _sharded(FakeKeys())
+    calls = []
+    monkeypatch.setattr(wopbs, "many_wopbs",
+                        lambda *a, **kw: calls.append(a))
+    for seed in (1, 2):
+        fhe_aes.ctr_step_jit(keys, *_fake_ctr_args(2, seed))
+    assert calls == []
+    assert (stub.capture.warmed, stub.cache.captures,
+            stub.cache.replays) == (1, 1, 2)
+    ((key, graph),) = stub.cache.graphs(keys).items()
+    assert key[0] is fhe_aes._CTR_STEP
+    assert key[1] == (tuple((s, min(s[0], 3))
+                            for s in sorted(_ctr_wopbs(2))),)
+    assert all(inside and cap == min(shape[0], 3)
+               for shape, cap, inside in fake_wopbs)
+    assert graph.held == (26, 26)
+
+
+def test_sharded_caps_are_agreed_once_a_shape_never_in_a_replay(
+        stub, fake_wopbs, agreed):
+    """agree_min runs once for each WoPBS shape of the call and of its
+    warm-up (the first block) at the first call, before the warm-up and
+    the capture, and never again: a replay reads nothing on the host."""
+    keys = _sharded(FakeKeys())
+    fhe_aes.ctr_step_jit(keys, *_fake_ctr_args(2, 1))
+    shapes = sorted(_ctr_wopbs(2)) + sorted(_ctr_wopbs(1))
+    assert agreed == [s[0] for s in shapes]
+    for seed in (2, 3):
+        fhe_aes.ctr_step_jit(keys, *_fake_ctr_args(2, seed))
+    assert len(agreed) == len(shapes)
+    assert stub.cache.replays == 3
+    # many_wopbs_jit of a decided shape takes the agreed cap, no new read
+    x = torch.zeros((32, 8, 5), dtype=torch.int64)
+    wopbs.many_wopbs_jit(keys, x, torus.from_u64(
+        fhe_aes._fwd_luts(PARAM_TOY)))
+    assert len(agreed) == len(shapes) and fake_wopbs[-1][1] == 3
+
+
+def test_split_batch_keys_are_one_object_across_rounds_and_calls(
+        toy, stub, fake_wopbs, agreed, monkeypatch):
+    """With the bytes split over a group, every round's WoPBS runs on the
+    shard's split-batch keys, one object made once a key set (a graph is
+    held by its key object), across the rounds of a call and the calls;
+    the ripple add's on the keys themselves."""
+    _, _, _, td = toy
+    keys = dataclasses.replace(td, shard=ContractionShard(
+        GROUP, slice(0, 1), slice(0, 1)))
+    seen = []
+    many = wopbs._many_wopbs
+    monkeypatch.setattr(wopbs, "_many_wopbs",
+                        lambda k, x, luts, cap: seen.append(
+                            (id(k), k.shard.split_batch))
+                        or many(k, x, luts, cap))
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(torch.distributed, "all_gather_into_tensor",
+                        lambda out, x, group=None: out.copy_(
+                            torch.cat([x, x])))
+    for seed in (1, 2):
+        fhe_aes.ctr_step_jit(keys, *_fake_ctr_args(2, seed),
+                             byte_group=GROUP)
+    split = keys.split_batch_keys
+    assert split is keys.split_batch_keys and split.shard.split_batch
+    assert split.shard.group is GROUP and not keys.shard.split_batch
+    # warm-up, capture, two replays: 10 rounds and 16 ripple steps each
+    assert collections.Counter(seen) == {(id(split), True): 40,
+                                         (id(keys), False): 64}
+    ((key, _),) = stub.cache.graphs(keys).items()
+    assert key[1][0] is GROUP
+    assert {s for s, _ in key[1][1]} == set(
+        fhe_aes._ripple_wopbs(*_fake_ctr_args(2)[2:])) | {(16, 24, 8),
+                                                          (16, 8, 8)}
 
 
 def test_armed_noise_checks_fire_once_a_wopbs(toy, stub):

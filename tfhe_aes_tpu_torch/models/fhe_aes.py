@@ -15,7 +15,9 @@ The JAX package also compiles five whole functions (add_scalar_device_jit,
 ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit, aes_key_expansion_jit);
 their counterparts here graph the whole function once per key set and
 shape, every WoPBS inside it inline, and the server, ctr_keystream and
-add_scalar dispatch through them as the JAX callers do.
+add_scalar dispatch through them as the JAX callers do; so does the mesh
+(parallel/mesh.sharded_ctr_fn, ctr_step_jit with its bytes split over a
+process group).
 """
 
 from __future__ import annotations
@@ -133,18 +135,20 @@ def _byte_wopbs(keys: DeviceKeys, state, lut, byte_group=None):
 
     byte_group: a process group over whose ranks the byte axis is split:
     each rank runs the WoPBS of its contiguous 16/n bytes, and the outputs
-    are all-gathered back into the whole byte axis.
+    are all-gathered back into the whole byte axis, a device op into one
+    tensor (a graph holds it over NCCL).
     """
     if byte_group is not None:
         n, r = dist.get_world_size(byte_group), dist.get_rank(byte_group)
         w = state.shape[1] // n
         if keys.shard is not None:      # the ranks' batches now differ
-            keys = dataclasses.replace(
-                keys, shard=dataclasses.replace(keys.shard, split_batch=True))
+            keys = keys.split_batch_keys
         mine = _byte_wopbs(keys, state[:, r * w:(r + 1) * w], lut)
-        parts = [torch.empty_like(mine) for _ in range(n)]
-        dist.all_gather(parts, mine.contiguous(), group=byte_group)
-        return torch.cat(parts, dim=1)
+        # Byte-major, so that the ranks' parts lie one after another.
+        mine = mine.movedim(1, 0).contiguous()          # [w, B, L, big+1]
+        whole = mine.new_empty((n * w,) + tuple(mine.shape[1:]))
+        dist.all_gather_into_tensor(whole, mine, group=byte_group)
+        return whole.movedim(0, 1)
     B, nb = state.shape[:2]
     out = wopbs.many_wopbs_jit(
         keys, state.reshape((B * nb,) + state.shape[2:]), lut)
@@ -352,12 +356,14 @@ def add_scalar_device(keys: DeviceKeys, state, lut_lsb, luts_rest):
     return state
 
 
-def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
-    """One CTR batch: broadcast IV -> ripple-add counters -> AES."""
+def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest,
+             byte_group=None):
+    """One CTR batch: broadcast IV -> ripple-add counters -> AES, each
+    round's bytes split over byte_group (aes_encrypt) when given."""
     B = lut_lsb.shape[0]
     state = enc_iv[None].expand((B,) + enc_iv.shape)
     state = add_scalar_device(keys, state, lut_lsb, luts_rest)
-    return aes_encrypt(keys, round_keys, state)
+    return aes_encrypt(keys, round_keys, state, byte_group=byte_group)
 
 
 # -- the whole-function dispatch units -----------------------------------------
@@ -373,11 +379,14 @@ def _ripple_wopbs(lut_lsb, luts_rest) -> collections.Counter:
                                 luts_rest.shape[0]})
 
 
-def _encrypt_wopbs(n_blocks: int) -> collections.Counter:
+def _encrypt_wopbs(n_blocks: int, byte_group=None) -> collections.Counter:
     """AES encryption's: 9 rounds of the fused {S-box, x2, x3} stack (L =
-    24), the final round's S-box (L = 8), each over 16 bytes a block."""
-    return collections.Counter({(16 * n_blocks, 24, 8): 9,
-                                (16 * n_blocks, 8, 8): 1})
+    24), the final round's S-box (L = 8), each over 16 bytes a block, or
+    this rank's 16 / n of them when byte_group's n ranks split them."""
+    n_bytes = 16 * n_blocks
+    if byte_group is not None:
+        n_bytes //= dist.get_world_size(byte_group)
+    return collections.Counter({(n_bytes, 24, 8): 9, (n_bytes, 8, 8): 1})
 
 
 def _decrypt_wopbs(n_blocks: int) -> collections.Counter:
@@ -424,14 +433,19 @@ class _Unit:
         args = self.first(*args[:-1])
         return self(keys, *args, wopbs.decide_caps(keys, self.wopbs(*args)))
 
-    def dispatch(self, keys: DeviceKeys, tensors: tuple, static=()):
+    def dispatch(self, keys: DeviceKeys, tensors: tuple, static=(),
+                 groups=()):
         """fn(keys, *tensors, *static), graphed (graphs.GRAPHS): its WoPBS
-        caps decided first and part of the graph's key.  Eager (each WoPBS
-        through many_wopbs_jit) on keys with a contraction shard, whose
-        collectives are not captured, and while utils/noise_asserts is
-        armed, whose checks read each WoPBS's input and output on the
-        host."""
-        if keys.shard is not None or noise_asserts.enabled():
+        caps decided first (on sharded keys, agreed over the shard's
+        group) and part of the graph's key.  groups: the process groups
+        of fn's own collectives.  Eager (each WoPBS through
+        many_wopbs_jit) where a collective runs over a group a capture
+        cannot hold (the keys' shard's or one of groups: gloo, see
+        graphs.capturable), and while utils/noise_asserts is armed, whose
+        checks read each WoPBS's input and output on the host."""
+        capturable = wopbs.graphable(keys) and all(map(graphs.capturable,
+                                                       groups))
+        if not capturable or noise_asserts.enabled():
             return self.fn(keys, *tensors, *static)
         caps = wopbs.decide_caps(keys, self.wopbs(*tensors, *static))
         return graphs.GRAPHS(self, keys, tensors, static + (caps,),
@@ -449,10 +463,11 @@ _ADD_SCALAR = _Unit(
                                        luts_rest[:, :1]))
 _CTR_STEP = _Unit(
     ctr_step,
-    lambda rks, iv, lut_lsb, luts_rest: (_ripple_wopbs(lut_lsb, luts_rest)
-                                         + _encrypt_wopbs(lut_lsb.shape[0])),
-    lambda rks, iv, lut_lsb, luts_rest: (rks, iv, lut_lsb[:1],
-                                         luts_rest[:, :1]))
+    lambda rks, iv, lut_lsb, luts_rest, *group: (
+        _ripple_wopbs(lut_lsb, luts_rest)
+        + _encrypt_wopbs(lut_lsb.shape[0], *group)),
+    lambda rks, iv, lut_lsb, luts_rest, *group: (rks, iv, lut_lsb[:1],
+                                                 luts_rest[:, :1], *group))
 _ENCRYPT = _Unit(aes_encrypt,
                  lambda rks, state: _encrypt_wopbs(state.shape[0]),
                  lambda rks, state: (rks, state[:1]))
@@ -474,17 +489,26 @@ def add_scalar_device_jit(keys: DeviceKeys, state, lut_lsb, luts_rest):
     return _ADD_SCALAR.dispatch(keys, (state, lut_lsb, luts_rest))
 
 
-def ctr_step_jit(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest):
+def ctr_step_jit(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest,
+                 *, byte_group=None):
     """ctr_step as a compiled dispatch unit (tfhe_aes_tpu's ctr_step_jit):
     its 16 ripple WoPBS and 10 AES rounds one graph a key set and batch.
-    Warms up on the first block."""
-    return _CTR_STEP.dispatch(keys, (round_keys, enc_iv, lut_lsb, luts_rest))
+    Warms up on the first block.
+
+    byte_group: each AES round's bytes split over the group's ranks
+    (ctr_step(byte_group=)), a static argument, its all-gathers in the
+    graph: the unit of parallel/mesh.sharded_ctr_fn, the counterpart of
+    the JAX mesh's jitted CTR function.  Every rank of the group (and of
+    the keys' shard's group) must make the same calls: the caps are
+    agreed, and the warm-up call runs each collective once, in step."""
+    static = () if byte_group is None else (byte_group,)
+    return _CTR_STEP.dispatch(keys, (round_keys, enc_iv, lut_lsb, luts_rest),
+                              static, groups=static)
 
 
 def aes_encrypt_jit(keys: DeviceKeys, round_keys, state):
     """aes_encrypt as a compiled dispatch unit (tfhe_aes_tpu's
-    aes_encrypt_jit).  aes_encrypt(byte_group=) has no unit: its
-    all-gathers are not captured.  Warms up on the first block."""
+    aes_encrypt_jit).  Warms up on the first block."""
     return _ENCRYPT.dispatch(keys, (round_keys, state))
 
 

@@ -48,6 +48,14 @@ nest captures, and a replay recorded into a capture would read another
 graph's static buffers.  The unit's graph then holds the launches of every
 WoPBS it ran, and each replay adds them all.
 
+A graph may hold collectives: those of a mesh's keys (ops/keys.
+ContractionShard) and of its byte split (models/fhe_aes.ctr_step_jit),
+when their process group is NCCL's (``capturable``): NCCL enqueues its
+work on the capturing stream.  Every rank of the group then issues the
+same warm-up call, capture and replays, in step; nothing in them reads a
+value on the host (the WoPBS caps are agreed before the warm-up).  Over
+gloo, which runs on the host, the callers stay eager.
+
 One caller at a time per owner: the calls of one key share its static
 buffers.  Captures run with capture_error_mode="thread_local", so a thread
 of the cold-start warm-up (utils/warmup.py) that is still running is not
@@ -65,6 +73,16 @@ import weakref
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+
+def capturable(group) -> bool:
+    """Whether a capture can hold the collectives of `group`: an NCCL
+    process group (its tensors on the card, its work enqueued on the
+    capturing stream).  gloo runs its collectives on the host, and a
+    group that is not a process group is not one."""
+    return (isinstance(group, dist.ProcessGroup)
+            and dist.get_backend(group) == "nccl")
 
 
 def kernel_counters() -> tuple:
@@ -136,15 +154,32 @@ class CudaCapture:
 
 
 _KERNEL_NODE = re.compile(r"\{KERNEL\s*\|\s*\{ID \|[^|]*\|\s*([^\s\\|}]+)")
+_MEMCPY_NODE = re.compile(r"\{\s*MEMCPY\s*\|.*?\{kind \| ([^}]*)\}.*?"
+                          r"\{Width \| (\d+)\}", re.S)
+
+
+def _dot(graph: "Graph", path) -> str:
+    """A captured graph's DOT dump (cudaGraphDebugDotPrint), written to
+    `path`.  The graph must have been captured under CudaCapture.keep."""
+    graph.graph.debug_dump(str(path))
+    with open(path) as f:
+        return f.read()
 
 
 def kernel_nodes(graph: "Graph", path) -> collections.Counter:
     """The kernel nodes a captured graph holds, by function name (as
-    compiled, mangled), from its DOT dump (cudaGraphDebugDotPrint) written
-    to `path`.  The graph must have been captured under CudaCapture.keep."""
-    graph.graph.debug_dump(str(path))
-    with open(path) as f:
-        return collections.Counter(_KERNEL_NODE.findall(f.read()))
+    compiled, mangled), from its DOT dump written to `path`."""
+    return collections.Counter(_KERNEL_NODE.findall(_dot(graph, path)))
+
+
+def memcpy_nodes(graph: "Graph", path) -> collections.Counter:
+    """The copy nodes a captured graph holds, by (kind, bytes), from its
+    DOT dump written to `path`.  A one-rank NCCL collective that is not in
+    place lowers to one copy of kind "default" (cudaMemcpyDefault); the
+    copies torch makes are "DtoD"."""
+    return collections.Counter(
+        (kind.strip(), int(width))
+        for kind, width in _MEMCPY_NODE.findall(_dot(graph, path)))
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@ key set there (``constant_leaves``), so the kernels' tiles of them
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -42,7 +43,7 @@ class ContractionShard:
     against them is summed over `group`.
 
     split_batch: each rank of `group` holds a batch of its own (of one
-    size on every rank) rather than the same batch.
+    size on every rank) rather than the same batch (split_batch_keys).
     """
     group: object
     ksk_rows: slice
@@ -64,9 +65,11 @@ class ContractionShard:
         fits int32)."""
         if self.split_batch:
             n = dist.get_world_size(self.group)
-            parts = [torch.empty_like(digits) for _ in range(n)]
-            dist.all_gather(parts, digits.contiguous(), group=self.group)
-            digits = torch.cat(parts)
+            whole = digits.new_empty((n * digits.shape[0],)
+                                     + tuple(digits.shape[1:]))
+            dist.all_gather_into_tensor(whole, digits.contiguous(),
+                                        group=self.group)
+            digits = whole
         m = ntt.int8_dot(digits[:, rows], key_limbs)
         dist.all_reduce(m, group=self.group)
         if self.split_batch:
@@ -103,6 +106,15 @@ class DeviceKeys:
     @property
     def device(self) -> torch.device:
         return self.bsk_limbs.device
+
+    @functools.cached_property
+    def split_batch_keys(self) -> "DeviceKeys":
+        """These keys with their shard's split_batch set (each rank of the
+        shard's group holds a batch of its own), made once a key set: a
+        graph is held by the key object it ran on (ops/graphs.py), so
+        every round of every call must pass the same one."""
+        return dataclasses.replace(self, shard=dataclasses.replace(
+            self.shard, split_batch=True))
 
     def to(self, device) -> "DeviceKeys":
         """A copy with every tensor leaf on `device`: the key material

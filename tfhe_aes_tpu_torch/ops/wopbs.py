@@ -19,7 +19,7 @@ import torch
 from ..utils import noise_asserts
 from . import cbs as cbs_mod
 from . import graphs, keyswitch, vertical_packing
-from .keys import DeviceKeys
+from .keys import ContractionShard, DeviceKeys
 
 
 def extract_bits(keys: DeviceKeys, byte_bits_big: torch.Tensor) -> torch.Tensor:
@@ -73,6 +73,25 @@ def chunk_bytes(keys: DeviceKeys, n_bytes: int, n_luts: int,
     return max(1, min(n_bytes, free // 3 // per_byte))
 
 
+def graphable(keys: DeviceKeys) -> bool:
+    """Whether a graph can hold a WoPBS on these keys: keys without a
+    contraction shard, or with one whose group's collectives a capture
+    can hold (graphs.capturable: NCCL)."""
+    shard = keys.shard
+    return shard is None or (isinstance(shard, ContractionShard)
+                             and graphs.capturable(shard.group))
+
+
+def _agreed(keys: DeviceKeys, cap: int) -> int:
+    """cap, or on keys with a contraction shard the least of its ranks'
+    caps: every chunk's products are summed over the shard's group, so
+    its ranks must cut the same chunks.  A collective read on the host:
+    never inside a capture."""
+    if keys.shard is None:
+        return cap
+    return keys.shard.agree_min(cap, keys.device)
+
+
 def _cap_key(keys: DeviceKeys, shape: tuple, vp_chunk: int | None) -> tuple:
     """The memo key of a WoPBS shape's chunk cap: shape is (bytes, LUT
     outputs, bits a byte)."""
@@ -83,7 +102,11 @@ def decide_caps(keys: DeviceKeys, shapes) -> tuple:
     """The chunk cap of each WoPBS shape (bytes, LUT outputs, bits a byte)
     of a whole-function unit, decided before its capture: ((shape, cap),
     ...) sorted, a static argument of the unit's graph.  Each is decided
-    once per key set and shape, shared with many_wopbs_jit.
+    once per key set and shape, shared with many_wopbs_jit.  On keys with
+    a contraction shard each is agreed over the shard's group (_agreed):
+    its ranks decide the same shapes in the same order, so they take
+    these collectives in step, and each then cuts the same chunks in
+    every replay.
 
     On a card an undecided cap is read after emptying the allocator's
     cache: a capture allocates from the graphs' pool, which cannot take
@@ -95,11 +118,11 @@ def decide_caps(keys: DeviceKeys, shapes) -> tuple:
         if keys.device.type == "cuda" and not emptied:
             torch.cuda.empty_cache()
             emptied = True
-        return chunk_bytes(keys, *shape)
-    return tuple(sorted(
+        return _agreed(keys, chunk_bytes(keys, *shape))
+    return tuple(
         (shape, graphs.GRAPHS.memo(keys, _cap_key(keys, shape, None),
                                    lambda shape=shape: make(shape)))
-        for shape in set(shapes)))
+        for shape in sorted(set(shapes)))
 
 
 _unit = threading.local()
@@ -155,8 +178,8 @@ def _many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
                 lut_polys: torch.Tensor, cap: int) -> torch.Tensor:
     """many_wopbs under a resolved chunk cap, without the noise checks:
     on the card, every op is a device op (no host copy, no sync), so the
-    whole of it can be captured when the keys have no contraction
-    shard."""
+    whole of it can be captured, with the collectives of a contraction
+    shard over NCCL."""
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
     small = extract_bits(keys, byte_bits_big)
     bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
@@ -199,9 +222,8 @@ def many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     """
     _check_input(byte_bits_big)
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
-    cap = vp_chunk or chunk_bytes(keys, B, lut_polys.shape[1], nbits)
-    if keys.shard is not None:
-        cap = keys.shard.agree_min(cap, byte_bits_big.device)
+    cap = _agreed(keys, vp_chunk
+                  or chunk_bytes(keys, B, lut_polys.shape[1], nbits))
     out = _many_wopbs(keys, byte_bits_big, lut_polys, cap)
     _check_output(out)
     return out
@@ -224,24 +246,26 @@ def many_wopbs_jit(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     same words as many_wopbs; the same noise checks when utils/
     noise_asserts is armed, on the static input before a replay and on
     the output after it, one of each a call, as in the eager run.
-    CPU tensors run eagerly.  Keys with a contraction shard run eagerly
-    too (many_wopbs): their ranks agree on the cap with an all-reduce and
-    a host read, and sum their products with gloo or NCCL collectives,
-    none of which a graph captures here.
+    CPU tensors run eagerly.  Keys with a contraction shard are graphed
+    when a capture can hold their group's collectives (graphable: NCCL),
+    the cap agreed over the group at the first call (_agreed), outside
+    the capture; over gloo the WoPBS runs eagerly (many_wopbs), its cap
+    agreed each call.
     Inside a whole-function unit's warm-up call or capture
     (graphs.GRAPHS.inside()) it runs _many_wopbs inline under the cap the
     unit decided (decided_caps), without the noise checks: the unit's
     graph holds it.  A unit runs eagerly while the checks are armed.
     """
-    if keys.shard is not None:
+    if not graphable(keys):
         return many_wopbs(keys, byte_bits_big, lut_polys, vp_chunk=vp_chunk)
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
     shape = (B, lut_polys.shape[1], nbits)
     if graphs.GRAPHS.inside():
         return _many_wopbs(keys, byte_bits_big, lut_polys,
                            vp_chunk or _decided_cap(shape))
-    cap = graphs.GRAPHS.memo(keys, _cap_key(keys, shape, vp_chunk),
-                             lambda: vp_chunk or chunk_bytes(keys, *shape))
+    cap = graphs.GRAPHS.memo(
+        keys, _cap_key(keys, shape, vp_chunk),
+        lambda: _agreed(keys, vp_chunk or chunk_bytes(keys, *shape)))
     return graphs.GRAPHS(_many_wopbs, keys, (byte_bits_big, lut_polys),
                          (cap,), warm=_one_byte, before=_check_input,
                          after=_check_output)

@@ -11,7 +11,9 @@ Counterpart of tfhe_aes_tpu/parallel/mesh.py.  The mesh has two axes:
 GSPMD inserts those collectives in the JAX package; here each one is an
 explicit torch.distributed call, on one process per device (torch's
 model).  Evaluation keys are broadcast from global rank 0 once, at
-staging: the all-gather-at-init pattern.
+staging: the all-gather-at-init pattern.  The CTR function is one
+compiled unit a rank, as the JAX package's is one jitted program: on the
+card a CUDA graph that holds its NCCL collectives (sharded_ctr_fn).
 """
 
 from __future__ import annotations
@@ -137,6 +139,19 @@ def sharded_ctr_fn(mesh: Mesh, keys: DeviceKeys, n_blocks: int,
     fhe_aes.add_scalar_luts (as int64 tensors, on any device); fn slices
     its dp range from them.  The ripple add is dp-only: every 'mp' rank of
     a dp row runs it.
+
+    The counterpart of the JAX mesh's jitted function: fn dispatches one
+    unit a rank (fhe_aes.ctr_step_jit on its dp slice, the bytes split
+    over 'mp' with shard_bytes), on the card a CUDA graph captured at the
+    first call and replayed by later ones, the keys' and the bytes'
+    collectives inside it when their groups are NCCL's
+    (graphs.capturable).  Over gloo, on the CPU and under armed noise
+    checks it runs eagerly.  Every rank of the mesh calls fn in step:
+    the first call agrees the WoPBS caps over the keys' shard, then a
+    warm-up call on the first block of the slice runs each collective
+    once eagerly (NCCL makes a sub-group's communicator at its first
+    collective, which a capture cannot).  gather_blocks, outside fn,
+    stands for the JAX function's out_shardings.
     """
     if n_blocks % mesh.n_dp:
         raise ValueError(f"{n_blocks} blocks do not split over "
@@ -150,12 +165,9 @@ def sharded_ctr_fn(mesh: Mesh, keys: DeviceKeys, n_blocks: int,
 
     def fn(round_keys, enc_iv, lut_lsb, luts_rest):
         dev = mesh.device
-        enc_iv = enc_iv.to(dev)
-        state = enc_iv[None].expand((per,) + enc_iv.shape)
-        state = fhe_aes.add_scalar_device(keys, state, lut_lsb[lo:hi].to(dev),
-                                          luts_rest[:, lo:hi].to(dev))
-        return fhe_aes.aes_encrypt(keys, round_keys.to(dev), state,
-                                   byte_group=byte_group), lo
+        return fhe_aes.ctr_step_jit(
+            keys, round_keys.to(dev), enc_iv.to(dev), lut_lsb[lo:hi].to(dev),
+            luts_rest[:, lo:hi].to(dev), byte_group=byte_group), lo
 
     return fn
 

@@ -19,8 +19,11 @@ Launcher mode (no RANK in the environment): spawns --procs workers on
 127.0.0.1, echoes their JSON lines, prints
 "# procs=N: X blocks/min, k/B blocks verified" (X: the B blocks over the
 slowest rank's timed run), and with --scaling also
-runs 1 process and prints the scaling JSON.  Under torchrun this module
-is the worker.  On the card each rank takes cuda:LOCAL_RANK, over NCCL,
+runs 1 process and prints the scaling JSON.  A worker's first call is
+not timed: on the card it captures the mesh function's graph (a warm-up
+call, the capture, a replay) and the timed run replays it; the worker
+prints both times, and its peak device memory, on stderr.  Under
+torchrun this module is the worker.  On the card each rank takes cuda:LOCAL_RANK, over NCCL,
 which refuses two ranks on one card: --procs must not exceed the cards.
 """
 
@@ -73,6 +76,7 @@ def worker(args) -> None:
     from ..cli import NIST_KEY as KEY
     from ..client.client import Client
     from ..models import aes_plain, fhe_aes
+    from ..ops import graphs
     from ..utils import profiling, serialization, torus
     from . import mesh as mesh_mod
 
@@ -98,7 +102,11 @@ def worker(args) -> None:
     fn = mesh_mod.sharded_ctr_fn(m, dkeys, B)
 
     print(f"# proc {rank}: keys staged", file=sys.stderr, flush=True)
-    profiling.device_fence(fn(rks, enc_iv, lut_lsb, luts_rest)[0])   # warm
+    # The first call: on the card, the unit's warm-up call, its capture
+    # and a replay (parallel/mesh.sharded_ctr_fn); the timed run replays.
+    t0 = time.perf_counter()
+    profiling.device_fence(fn(rks, enc_iv, lut_lsb, luts_rest)[0])
+    first_s = time.perf_counter() - t0
     dist.barrier()
     counters = _launch_counts() if m.device.type == "cuda" else {}
     for wrapper in counters.values():
@@ -108,6 +116,15 @@ def worker(args) -> None:
     profiling.device_fence(out)
     dt = time.perf_counter() - t0
     launches = {name: w.launches for name, w in counters.items()}
+    peak = ""
+    if m.device.type == "cuda":
+        peak = (f"; peak device memory "
+                f"{torch.cuda.max_memory_allocated(m.device) / 2**30:.2f} "
+                f"GiB (reserved "
+                f"{torch.cuda.max_memory_reserved(m.device) / 2**30:.2f})")
+    print(f"# proc {rank}: first call {first_s:.3f} s, timed run "
+          f"{dt:.3f} s; graphs captured {graphs.GRAPHS.captures}, replayed "
+          f"{graphs.GRAPHS.replays}{peak}", file=sys.stderr, flush=True)
 
     # Every rank verifies the blocks it holds, on the host.
     client.fetch_and_verify_ctr(out, KEY, IV, offset=first)
