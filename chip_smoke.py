@@ -9,7 +9,7 @@ the script exits non-zero:
   1. the blind-rotate kernel against blind_rotate_plain, word for word, at
      four toy sets (one with 25 GGSW rows) x batches 1, 9, 128, at
      PARAM_TPU at every batch the paths below give it (16 to 1024 bits,
-     and the bench's 64-block AES round, 8192 bits, timed) and at
+     and phase 7's 64-block AES round, 8192 bits, timed) and at
      PARAM_OPT (the CLI's default set, 25 rows) at the batches of its
      4-block CTR, each timed beside its bound; then torch._int_mm on one
      step's product shapes as a yardstick of the int8 product rate;
@@ -18,7 +18,7 @@ the script exits non-zero:
      batch that fills neither a digit tile's group of 25 accumulators nor
      a 128-row tile); PARAM_TPU at the paths' byte-LUT shapes: AES rounds
      (L=24) and final rounds (S-box, L=8) at 16 to 1024 bytes (1024, the
-     bench's round, timed), the ripple add (L=9) at 2, 4, 8 and 64 blocks,
+     64-block round, timed), the ripple add (L=9) at 2, 4, 8 and 64 blocks,
      the key-expansion round (L=16), decrypt's L=8 and L=32 at 64 and 16
      bytes, the SubWord and pk-RCON refreshes at 4 and 12 bytes (L=8),
      each timed beside its bound; then torch._int_mm on one selector bit's
@@ -46,11 +46,11 @@ the script exits non-zero:
      aes_decrypt under torch.profiler, each kernel's device time;
   6. the CLI in-process on the cached keys: a 2-block CTR run with
      --pk-rcon --decrypt --noise-asserts, then the --test harness;
-  7. the bench entry in-process (python -m tfhe_aes_tpu_torch.bench):
-     PARAM_TPU at its default 64 blocks, 1 repeat, --decrypt 4 (device
-     keygen, saved to the key cache), every block verified on the host;
-     then PARAM_OPT at 4 blocks with --device-verify, verified on the
-     card; each JSON line parsed;
+  7. CTR batches through Client and Server: PARAM_TPU at 64 blocks
+     (device keygen beside the warm-up, saved to the seed-0 key cache),
+     its second call (a replay) timed, every block verified on the host
+     and 4 decrypted back homomorphically; then PARAM_OPT at 4 blocks,
+     verified on the card;
   8. the mesh: (a) the multi-process CTR launcher with one rank a card
      over NCCL, PARAM_TPU, 8 blocks, keys from phase 7's cache, every
      block verified by its rank, each rank's mesh function one graph
@@ -84,7 +84,7 @@ the script exits non-zero:
  11. the compiled dispatch units on phase 7's PARAM_TPU keys: the staged
      key expansion graphed (first, warm) against every WoPBS eager, word
      for word; graphed against eager word for word at every shape the
-     main path's graphs take (key expansion 16 B, L=16; the bench's
+     main path's graphs take (key expansion 16 B, L=16; phase 7's
      ripple add 64 B at 8 and 9 bits, L=9; its AES rounds 1024 B, L=24 and
      L=8; decrypt 64 B, L=8 and L=32; pk-RCON 4, 12 and 4 B, L=8), each
      graph's kernel nodes (read from its DOT dump) equal to the launches
@@ -103,7 +103,7 @@ the script exits non-zero:
      1 and 8 again, the allocated and reserved memory after each beside
      the bytes of the new graph's static buffers.
 Every launch count is read from zero around one run of a path (phases 3,
-5 and 6; each of phase 7's two bench runs; each of phase 8's (a), (b)
+5 and 6; each of phase 7's two runs; each of phase 8's (a), (b)
 and (c), whose ranks count their own and report them; each of phase 9's two study
 runs, summed; phase 10's two CLI processes, each counting its own and
 summed; phase 11, eager and graphed calls together; phase 12, the
@@ -146,9 +146,9 @@ IV = 0x00112233445566778899AABBCCDDEEFF
 KERNELS = ("blind_rotate", "vertical_packing")
 CACHE_SEED = 1          # the seed of phase 4's keys and phase 6's CLI runs
 CLI_BLOCKS = 2          # phase 6's CTR run
-BENCH_BLOCKS = 64       # phase 7: the bench's default batch, PARAM_TPU
-BENCH_DECRYPT = 4       # phase 7: its --decrypt blocks
-OPT_BLOCKS = 4          # phase 7: the PARAM_OPT bench batch
+BENCH_BLOCKS = 64       # phase 7: the PARAM_TPU batch
+BENCH_DECRYPT = 4       # phase 7: its blocks decrypted back
+OPT_BLOCKS = 4          # phase 7: the PARAM_OPT batch
 MESH_BLOCKS = 8         # phase 8 (a): the launcher's batch, PARAM_TPU
 TOY_MESH_BLOCKS = 2     # phase 8 (b): the two-rank gloo batch, PARAM_TOY
 NOISE_PBS = 4096        # phase 9: boolean PBS bits of a set's study
@@ -418,59 +418,58 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
             "cli (phase 6)": cli_launches}
 
 
-def _run_bench(bench, argv) -> tuple[dict, str]:
-    """bench.main(argv) in this process; echoes its output.  Returns (the
-    JSON record of its last stdout line, its stderr)."""
-    out, err = io.StringIO(), io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = bench.main(argv)
-    finally:
-        for line in (err.getvalue() + out.getvalue()).splitlines():
-            print(f"phase 7:   {line}")
-    if rc != 0:
-        raise AssertionError(f"bench {' '.join(argv)} returned {rc}")
-    return json.loads(out.getvalue().strip().splitlines()[-1]), err.getvalue()
-
-
-def _bench_phase(dev, wrappers) -> dict:
-    """Phase 7: the bench entry at PARAM_TPU (64 blocks, decrypt 4) and
-    PARAM_OPT (4 blocks), keys by device keygen into the key cache.
-    Returns the launch counts of each run, by path."""
+def _ctr_phase(dev, wrappers) -> dict:
+    """Phase 7: PARAM_TPU at 64 blocks with 4 blocks decrypted back, then
+    PARAM_OPT at 4 blocks verified on the card, each batch timed on its
+    second call (a replay); keys by device keygen beside the warm-up,
+    saved to the seed-0 key cache the later phases load.  Returns the
+    launch counts of each run, by path."""
     import torch
-    from tfhe_aes_tpu_torch import bench
+    from tfhe_aes_tpu_torch import cli
+    from tfhe_aes_tpu_torch.params import PARAM_OPT, PARAM_TPU
+    from tfhe_aes_tpu_torch.server import Server
+    from tfhe_aes_tpu_torch.utils import profiling, torus, warmup
 
-    card = {"name": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
-    runs = (("PARAM_TPU", BENCH_BLOCKS,
-             ["--blocks", str(BENCH_BLOCKS), "--repeats", "1", "--decrypt",
-              str(BENCH_DECRYPT)]),
-            ("PARAM_OPT", OPT_BLOCKS,
-             ["--params", "prod", "--blocks", str(OPT_BLOCKS), "--repeats",
-              "1", "--device-verify"]))
+    runs = ((PARAM_TPU, BENCH_BLOCKS, BENCH_DECRYPT, False),
+            (PARAM_OPT, OPT_BLOCKS, 0, True))
     torch.cuda.empty_cache()
     paths = {}
-    for name, blocks, argv in runs:
+    for params, blocks, decrypt, on_card in runs:
         _reset_launches(wrappers)
         t0 = time.perf_counter()
-        rec, err = _run_bench(bench, argv)
-        wall = time.perf_counter() - t0
-        path = f"bench {name} (phase 7)"
+        warm = warmup.precompile(params, blocks, device=dev)
+        client, keys = cli.client_and_keys(params, 0, dev, True)
+        report = warm.join()
+        server = Server(keys)
+        enc_key = torus.from_u64(client.encrypt_u128(KEY), dev)
+        enc_iv = torus.from_u64(client.encrypt_u128(IV), dev)
+        rks = profiling.device_fence(server.aes_key_expansion(enc_key))
+        # The batch's first call: a one-block warm-up, the capture, a replay.
+        profiling.device_fence(server.ctr_keystream(rks, enc_iv, blocks, 1))
+        t1 = time.perf_counter()
+        ks = profiling.device_fence(
+            server.ctr_keystream(rks, enc_iv, blocks, 1))
+        ctr_s = time.perf_counter() - t1
+        if on_card:
+            client.verify_ctr_device(ks, KEY, IV, offset=1)
+        else:
+            client.fetch_and_verify_ctr(ks, KEY, IV, offset=1)
+        if decrypt:
+            back = torus.to_u64(server.aes_decrypt(rks, ks[:decrypt]))
+            for i in range(decrypt):
+                if client.decrypt_state_u128(back[i]) != IV + 1 + i:
+                    raise AssertionError(f"{params.name}: decrypt "
+                                         f"round-trip block {i} wrong")
+        path = f"ctr {params.name} (phase 7)"
         paths[path] = _read_launches(wrappers, path)
-        if (rec["metric"], rec["params"], rec["blocks"], rec["device"]) != \
-                ("aes128_ctr_blocks_per_min", name, blocks, card):
-            raise AssertionError(f"bench {name}: unexpected record {rec}")
-        where = "device" if "--device-verify" in argv else "host"
-        if f"# verified {blocks} blocks bit-exact vs plaintext AES " \
-                f"({where} decrypt" not in err:
-            raise AssertionError(f"bench {name}: blocks not verified")
-        if "--decrypt" in argv and \
-                f"round-trip verified ({BENCH_DECRYPT} blocks)" not in err:
-            raise AssertionError(f"bench {name}: decrypt not verified")
-        print(f"phase 7: bench {name} {blocks} blocks: {rec['value']} "
-              f"blocks/min ({rec['vs_baseline']}x the reference's 84 "
-              f"s/block), every block verified; whole run {wall:.1f} s; "
-              f"launches {paths[path]}")
+        print(f"phase 7: {params.name} {blocks} blocks {ctr_s:.2f} s = "
+              f"{blocks / ctr_s * 60:.3f} blocks/min (warm, a graph "
+              f"replay), every block verified on the "
+              f"{'card' if on_card else 'host'}"
+              f"{f', {decrypt} decrypted back' if decrypt else ''}; "
+              f"warm-up {report}; whole run "
+              f"{time.perf_counter() - t0:.1f} s; launches {paths[path]}")
+        del server, keys, rks, ks
     return paths
 
 
@@ -565,7 +564,7 @@ def _nccl_mesh_rank(rank, out_dir, port) -> None:
         record = {
             "unit": unit is fhe_aes._CTR_STEP, "caps": static[-1],
             "captures": graphs.GRAPHS.captures,
-            "replays": graphs.GRAPHS.replays, "held": list(graph.held),
+            "replays": graphs.GRAPHS.replays, "held": list(graph.held[:2]),
             "want_held": [rot, vp], "warm_wopbs": warm, "counts": counts,
             "ms": times, "kernel_nodes": n_nodes, "peak": peak,
             "gather_bytes": gathers,
@@ -1050,17 +1049,24 @@ VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
 
 def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     """The kernel nodes of a captured graph, by kernel, against what its
-    replays add to the launch counts (graph.held: rotate and VP calls):
-    a call of the rotate is one decomposition and n (the LWE dimension)
-    steps of K1 and K2, a call of VP one of each of its three kernels a
-    rotated selector bit (min(nbits, log2 N) a call: vp_bits in all)."""
+    replays add to the launch counts (graph.held: rotate and VP calls,
+    device marks): a call of the rotate is one decomposition and n (the
+    LWE dimension) steps of K1 and K2, a call of VP one of each of its
+    three kernels a rotated selector bit (min(nbits, log2 N) a call:
+    vp_bits in all), a mark one node, as many as the labels the capture
+    recorded."""
     from tfhe_aes_tpu_torch.ops import graphs
+    from tfhe_aes_tpu_torch.utils import profiling
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
-    rot, _ = graph.held
+    rot, _, marks = graph.held
+    if marks != len(graph.marks):
+        raise AssertionError(f"{what}: the graph counts {marks} marks, its "
+                             f"capture recorded {len(graph.marks)}")
     want = {ROTATE_ONCE: rot,
             **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
-            **{k: vp_bits for k in VP_NODES}}
+            **{k: vp_bits for k in VP_NODES},
+            profiling.MARK_KERNEL: marks}
     got = {k: sum(n for name, n in nodes.items() if k in name)
            for k in want}
     if got != want:
@@ -1146,7 +1152,7 @@ def _graph_phase(dev, wrappers) -> dict:
                              rng)
         return torus.from_u64(cts, dev)
 
-    # The bench's batch: its ripple add (a byte a block) and AES rounds;
+    # Phase 7's batch: its ripple add (a byte a block) and AES rounds;
     # its decrypt's rounds; the pk-RCON schedule's three WoPBS.
     nb_, aes_bytes, dec_bytes = BENCH_BLOCKS, 16 * BENCH_BLOCKS, \
         16 * BENCH_DECRYPT
@@ -1368,7 +1374,7 @@ def _unit_phase(dev, wrappers, smi: str) -> dict:
         if key[0] is not unit_obj:
             raise AssertionError(f"phase 12 {label}: not the unit's graph")
         rot, vp, vp_bits = _unit_launches(p, unit_obj, graph, key[1])
-        if graph.held != (rot, vp):
+        if graph.held[:2] != (rot, vp):
             raise AssertionError(f"phase 12 {label}: the graph holds "
                                  f"{graph.held} calls, its WoPBS {rot, vp}")
         n_nodes = _check_graph_nodes(graph, p, vp_bits, f"phase 12 {label}")
@@ -1814,7 +1820,7 @@ def main() -> int:
     try:
         paths = {"ctr (phase 3)": launches}
         paths.update(_reference_phases(dev, wrappers, keygen_s))
-        paths.update(_bench_phase(dev, wrappers))
+        paths.update(_ctr_phase(dev, wrappers))
         paths.update(_mesh_phase(dev, wrappers))
         noise_paths, noise_shapes, noise_err = _noise_phase(dev, wrappers)
         paths.update(noise_paths)

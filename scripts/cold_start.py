@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Cold and warm start of the torch port's CLI and bench on one card.
+"""Cold and warm start of the torch port's CLI on one card.
 
     python3 scripts/cold_start.py LABEL=ROOT[:no-zero-key-wopbs] ...
 
@@ -17,9 +17,8 @@ a temporary directory without its ``_build/`` and with an empty key cache
      (nvcc, device keygen, the key-cache save) and warm (the built
      libraries, the saved keys), each timed from the start of its process,
      and from the line that names the parameters (after the imports), to
-     the line that reports the verified blocks;
-  3. runs ``python -m tfhe_aes_tpu_torch.bench --blocks 2 --repeats 1`` on
-     that key cache and reads its first and warm key expansion.
+     the line that reports the verified blocks, with the first key
+     expansion of each.
 
 ``:no-zero-key-wopbs`` runs the checkout with its warm-up's execution step
 (utils/warmup._zero_key_wopbs) replaced by nothing: the builds and the
@@ -44,7 +43,6 @@ KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
 CLI_ARGS = ["--params", "tpu", "--seed", "0", "--number-of-outputs", "2",
             "--iv", hex(IV), "--key", hex(KEY)]
-BENCH_ARGS = ["--blocks", "2", "--repeats", "1"]
 
 # Runs a module of the copied package as `python -m` does, optionally with
 # the warm-up's execution step taken out.
@@ -143,13 +141,6 @@ def one_run(label: str, root: str, no_exec: bool) -> dict:
                 r"AES key expansion took: ([0-9.]+)s", out)
             m = re.search(r"warm-up \(overlapped\): (\{.*\})", out)
             row[f"{kind}_warmup"] = m.group(1) if m else None
-        out, _ = _child(f"{label} bench",
-                        runner + ["tfhe_aes_tpu_torch.bench", flag]
-                        + BENCH_ARGS, pkg, env, (), 900)
-        row["bench_key_expansion_first_s"] = _number(
-            r"key expansion \(first\): ([0-9.]+)s", out)
-        row["bench_key_expansion_warm_s"] = _number(
-            r"key expansion \(warm\): ([0-9.]+)s", out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return row

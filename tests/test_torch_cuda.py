@@ -167,8 +167,9 @@ def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     report = warm.join()
     assert {"tiles", "zero_key_wopbs", "nvcc_blind_rotate",
-            "nvcc_vertical_packing"} <= set(report), report
-    assert set(cuda_build._libs) == {"blind_rotate", "vertical_packing"}
+            "nvcc_vertical_packing", "nvcc_marks"} <= set(report), report
+    assert set(cuda_build._libs) == {"blind_rotate", "vertical_packing",
+                                     "marks"}
 
     built = []
 
@@ -209,7 +210,8 @@ def test_graphed_wopbs_equals_eager_and_replays_count(dev, params):
     wrappers = graphs.kernel_counters()
     first = wopbs.many_wopbs_jit(k, runs[0], lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
-    assert graph.held == (params.cbs_level, int(params.cbs_level == 1))
+    assert graph.held == (params.cbs_level, int(params.cbs_level == 1),
+                          len(graph.marks))
     counts = [w.launches for w in wrappers]
     second = wopbs.many_wopbs_jit(k, runs[1], lut)
     assert [w.launches - n for w, n in zip(wrappers, counts)] == \
@@ -338,15 +340,16 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     wopbs.many_wopbs_jit(k, cts, lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
-    rot, vp = graph.held
+    rot, vp, marks = graph.held
     n, bits = params.lwe_dimension, min(8, params.log2_poly_size)
     want = {"br_decompose_kernel": rot, "br_forward_mac_kernel": n * rot,
             "br_inverse_crt_kernel": n * rot, "vp_digits_kernel": bits * vp,
             "vp_forward_mac_kernel": bits * vp,
-            "vp_inverse_crt_kernel": bits * vp}
+            "vp_inverse_crt_kernel": bits * vp, "tfhe_mark": marks}
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want} == want
     assert rot == params.cbs_level and vp == int(params.cbs_level == 1)
+    assert marks == len(graph.marks) == 5       # one chunk
 
 
 def _unit_cases(client, dev, aes_plain, fhe_aes):
@@ -420,7 +423,7 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     static = key[1]
     runs = key[0].wopbs(*graph.inputs, *static[:-1])
     n_wopbs = sum(runs.values())
-    assert graph.held == (n_wopbs, n_wopbs)
+    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks))
     assert all(cap >= shape[0] for shape, cap in static[-1])  # one chunk
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
     bits = sum(c * min(s[2], PARAM_TOY_VP.log2_poly_size)
@@ -430,7 +433,8 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
                   "br_forward_mac_kernel": n * n_wopbs,
                   "br_inverse_crt_kernel": n * n_wopbs,
                   "vp_digits_kernel": bits, "vp_forward_mac_kernel": bits,
-                  "vp_inverse_crt_kernel": bits}
+                  "vp_inverse_crt_kernel": bits,
+                  "tfhe_mark": len(graph.marks)}
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want_nodes} == want_nodes
 
@@ -485,7 +489,7 @@ def test_one_rank_nccl_mesh_is_one_graph_equal_to_ctr_keystream(
                                                              want["A"])
         assert key[0] is fhe_aes._CTR_STEP and key[1][0] is m.mp_group
         n_wopbs = sum(key[0].wopbs(*graph.inputs, *key[1][:-1]).values())
-        assert graph.held == (n_wopbs, n_wopbs) == (26, 26)
+        assert graph.held[:2] == (n_wopbs, n_wopbs) == (26, 26)
         copies = graphs.memcpy_nodes(graph, tmp_path / "graph.dot")
         big1 = p.big_lwe_dimension + 1
         assert {L: copies[("default (DEVICE to DEVICE)",
@@ -493,3 +497,135 @@ def test_one_rank_nccl_mesh_is_one_graph_equal_to_ctr_keystream(
             {24: 9, 8: 1}
     finally:
         torch.distributed.destroy_process_group()
+
+
+# -- device marks (utils/profiling.py) ----------------------------------------
+
+def _ctr_args(client, dev, fhe_aes, aes_plain, offset):
+    p = client.params
+    sched = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(0x2B7E1516))
+    rks = torus.from_u64(np.stack([np.stack([client.encrypt_byte(b)
+                                             for b in rk])
+                                   for rk in sched]), dev)
+    iv = torus.from_u64(client.encrypt_u128(0x1FF), dev)
+    lut = tuple(torus.from_u64(t, dev) for t in fhe_aes.add_scalar_luts(
+        p, fhe_aes.counter_bytes(2, offset)))
+    return rks, iv, lut
+
+
+def test_replayed_marks_decode_in_order_and_leave_the_keystream(
+        dev, monkeypatch):
+    """ctr_step_jit at 2 blocks, traced over two replays: each replay's
+    marks decode to its own ordered stamps, the second's after the
+    first's; ctr_step holds ripple_add (16 WoPBS) then aes_rounds (10),
+    which together take no more than it; and the words are those of
+    ctr_step run eagerly with no mark at all."""
+    from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
+    from tfhe_aes_tpu_torch.ops import graphs
+    from tfhe_aes_tpu_torch.utils import profiling
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    rks, iv, lut = {}, {}, {}
+    for s, off in (("A", 1), ("B", 0x101)):
+        rks[s], iv[s], lut[s] = _ctr_args(client, dev, fhe_aes, aes_plain,
+                                          off)
+    with monkeypatch.context() as m:
+        m.setattr(wopbs, "many_wopbs_jit", wopbs.many_wopbs)
+        m.setattr(profiling, "mark", lambda *a, **kw: None)
+        want = {s: fhe_aes.ctr_step(k, rks[s], iv[s], *lut[s]) for s in "AB"}
+    fhe_aes.ctr_step_jit(k, rks["A"], iv["A"], *lut["A"])   # the capture
+    ((_, graph),) = graphs.GRAPHS.graphs(k).items()
+    assert graph.marks[0] == "|ctr_step,ripple_add"
+    assert graph.marks[-1] == "aes_rounds,ctr_step|"
+    assert len(graph.marks) == 3 + 5 * 26 == graph.held[2]
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = {s: fhe_aes.ctr_step_jit(k, rks[s], iv[s], *lut[s])
+               for s in "BA"}
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize()
+    for s in "AB":
+        assert torch.equal(got[s], want[s])
+    rep = profiling.report()
+    assert rep["lost"] == []
+    assert rep["marks_logged"] == len(rep["marks"]) == 2 * len(graph.marks)
+    stamps = [m["ns"] for m in rep["marks"]]
+    assert stamps == sorted(stamps)
+    n = len(graph.marks)
+    assert stamps[n - 1] <= stamps[n]        # the replays do not overlap
+    spans = rep["device_spans"]
+    steps = [s for s in spans if s["name"] == "ctr_step"]
+    assert len(steps) == 2 and steps[0]["end_ns"] <= steps[1]["start_ns"]
+    for step in steps:
+        kids = [s for s in spans if s["parent"] == step["id"]]
+        assert [s["name"] for s in kids] == ["ripple_add", "aes_rounds"]
+        assert sum(e["end_ns"] - e["start_ns"] for e in kids) <= \
+            step["end_ns"] - step["start_ns"]
+        for kid, n_wopbs in zip(kids, (16, 10)):
+            assert sum(s["parent"] == kid["id"] and s["name"] == "wopbs"
+                       for s in spans) == n_wopbs
+    assert rep["counters"]["units"]["ctr_step"]["replays"] == 2
+
+
+def test_the_staged_key_expansion_is_one_device_span_of_eleven_wopbs(dev):
+    """Traced, the staged key expansion (11 replays of one WoPBS graph and
+    the eager work between) decodes to one key_expansion span over 11
+    WoPBS, inside the server's top-level host span."""
+    from tfhe_aes_tpu_torch.server import Server
+    from tfhe_aes_tpu_torch.utils import profiling
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    server = Server(k)
+    enc_key = torus.from_u64(client.encrypt_u128(0x2B7E1516), dev)
+    server.aes_key_expansion(enc_key)                  # the capture
+    profiling.reset()
+    profiling.enable()
+    try:
+        server.aes_key_expansion(enc_key)
+    finally:
+        profiling.disable()
+    rep = profiling.report()
+    assert rep["lost"] == []
+    spans = rep["device_spans"]
+    (top,) = [s for s in rep["host_spans"] if s["parent"] is None]
+    assert top["name"] == "aes_key_expansion"
+    (kx,) = [s for s in spans if s["name"] == "key_expansion"]
+    assert kx["request"] == top["id"] and kx["end_ns"] > kx["start_ns"]
+    assert sum(s["name"] == "wopbs" and s["parent"] == kx["id"]
+               for s in spans) == 11
+    assert rep["counters"]["units"]["wopbs"]["replays"] == 11
+    assert {s["name"] for s in rep["host_spans"]} >= {"glue", "copy_in",
+                                                      "replay", "clone"}
+
+
+def test_a_profile_holds_a_record_a_logged_mark_and_no_span_on_the_card(
+        dev):
+    """Under torch.profiler a replayed WoPBS's marks are MARK_KERNEL
+    records, as many as the marks logged; the host spans are host records
+    only, with no mirror on the card's timeline."""
+    from tfhe_aes_tpu_torch.utils import profiling
+    client, k = _keys(PARAM_TOY_VP, 11, dev)
+    lut = torus.from_u64(luts.lut_polys_from_tables(
+        PARAM_TOY_VP, tables.sbox()[None], 8), dev)
+    cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in (7, 9)]),
+                         dev)
+    wopbs.many_wopbs_jit(k, cts, lut)                  # the capture
+    profiling.reset()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with profiling.span("request"):
+            for _ in range(2):
+                wopbs.many_wopbs_jit(k, cts, lut)
+        torch.cuda.synchronize()
+    events = prof.events()
+    rep = profiling.report()
+    marks = sum(e.device_type == cuda and profiling.MARK_KERNEL in e.name
+                for e in events)
+    assert marks == rep["marks_logged"] == 10
+    spans = {profiling.SPAN_PREFIX + name
+             for name in ("request", "copy_in", "replay", "clone")}
+    assert not [e.name for e in events if e.device_type == cuda
+                and e.name in spans]
+    assert spans <= {e.name for e in events if e.device_type != cuda}

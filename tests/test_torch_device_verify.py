@@ -1,10 +1,8 @@
 """Decryption on the states' device (Client.decrypt_bits_device,
-verify_ctr_device) and the --device-verify flag of the torch port's CLI
-and bench, against the JAX package (CPU, PARAM_TOY)."""
+verify_ctr_device) and the --device-verify flag of the torch port's CLI,
+against the JAX package (CPU, PARAM_TOY)."""
 
 import argparse
-import importlib.util
-import pathlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -13,7 +11,7 @@ import torch
 
 from tfhe_aes_tpu import cli as jcli
 from tfhe_aes_tpu.client.client import Client as JaxClient
-from tfhe_aes_tpu_torch import bench, cli
+from tfhe_aes_tpu_torch import cli
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.models import aes_plain
 from tfhe_aes_tpu_torch.params import PARAM_TOY
@@ -22,7 +20,6 @@ from tfhe_aes_tpu_torch.utils import torus
 torch.set_num_threads(1)
 
 U64 = np.uint64
-REPO = pathlib.Path(__file__).resolve().parent.parent
 KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
 
@@ -86,30 +83,14 @@ def _jax_fields(monkeypatch, main, argv) -> dict:
     return seen
 
 
-def _root_bench():
-    spec = importlib.util.spec_from_file_location("root_bench",
-                                                  REPO / "bench.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-@pytest.mark.parametrize("which", ["cli", "bench"])
+@pytest.mark.parametrize("which", ["cli"])
 def test_device_verify_parses_as_in_jax(monkeypatch, which):
-    if which == "cli":
-        argv = ["--params", "tpu", "--device-verify", "--number-of-outputs",
-                "2", "--iv", hex(IV), "--key", hex(KEY), "--seed", "3"]
-        port = vars(cli._parser().parse_args(argv))
-        seen = _jax_fields(monkeypatch, jcli.main, argv)
-        must = {"device_verify", "params", "number_of_outputs", "iv", "key",
-                "seed", "no_verify", "host_verify", "decrypt"}
-    else:
-        argv = ["--blocks", "8", "--params", "prod", "--device-verify",
-                "--decrypt", "2", "--repeats", "1"]
-        port = vars(bench._parser().parse_args(argv))
-        seen = _jax_fields(monkeypatch, _root_bench().main, argv)
-        must = {"device_verify", "blocks", "params", "repeats", "skip_verify",
-                "decrypt"}
+    argv = ["--params", "tpu", "--device-verify", "--number-of-outputs",
+            "2", "--iv", hex(IV), "--key", hex(KEY), "--seed", "3"]
+    port = vars(cli._parser().parse_args(argv))
+    seen = _jax_fields(monkeypatch, jcli.main, argv)
+    must = {"device_verify", "params", "number_of_outputs", "iv", "key",
+            "seed", "no_verify", "host_verify", "decrypt"}
     shared = port.keys() & seen.keys()
     assert must <= shared
     assert {k: port[k] for k in shared} == {k: seen[k] for k in shared}

@@ -3,7 +3,7 @@
     python -m tfhe_aes_tpu_torch.cli --number-of-outputs N --iv IV --key KEY
         [--params {prod,tpu,toy}] [--seed S] [--device {cuda,cpu}]
         [--pk-rcon] [--decrypt] [--noise-asserts] [--no-verify] [--no-cache]
-        [--host-verify | --device-verify]
+        [--host-verify | --device-verify] [--trace-out PATH]
     python -m tfhe_aes_tpu_torch.cli --test [--test-random R] ...
 
 Counterpart of tfhe_aes_tpu/cli.py: keygen (or a key-cache load) with the
@@ -14,6 +14,9 @@ instead.  ``--device`` replaces the JAX ``--platform``: ``cuda`` (the
 default) needs a card and fails without one, ``cpu`` runs the plain torch
 versions (use it with ``--params toy``).  Verification runs on the
 client, on the host, unless ``--device-verify`` decrypts on the device.
+``--trace-out PATH`` turns the port's tracing on (utils/profiling.py) and
+writes its report there as JSON at exit: host spans, device spans, the
+units' and WoPBS counters, each layer's self time.
 """
 
 from __future__ import annotations
@@ -166,6 +169,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="where the server runs: cuda needs a card and "
                          "fails without one; cpu runs the plain torch "
                          "versions")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="trace the run (host spans, device marks, "
+                         "counters) and write the report to PATH as JSON "
+                         "at exit")
     return ap
 
 
@@ -179,6 +186,18 @@ def main(argv=None) -> int:
         return 2
     device = torch.device(args.device)
     params = PARAMS[args.params]
+    if args.trace_out:
+        profiling.enable()
+        try:
+            return _main(ap, args, device, params)
+        finally:
+            profiling.disable()
+            profiling.dump(args.trace_out)
+            print(f"[client] trace written to {args.trace_out}")
+    return _main(ap, args, device, params)
+
+
+def _main(ap, args, device, params) -> int:
     if args.test:
         run_test_harness(params, args.test_random, seed=args.seed,
                          device=device, use_cache=not args.no_cache)
@@ -219,10 +238,13 @@ def _run(args, client, dkeys, device) -> None:
           f"{time.perf_counter() - t0:.2f}s")
 
     n = args.number_of_outputs
+    ran = dict(profiling.WOPBS)
     t0 = time.perf_counter()
     ks = profiling.device_fence(server.ctr_keystream(round_keys, enc_iv, n))
     t_ctr = time.perf_counter() - t0
-    pbs = n * profiling.count_pbs_per_block(client.params)
+    pbs = client.params.cbs_level * sum(
+        (runs - ran.get(shape, 0)) * shape[0] * shape[2]
+        for shape, runs in profiling.WOPBS.items())
     print(f"[server] AES of #{n} outputs computed in: {t_ctr:.2f}s "
           f"({n / t_ctr * 60:.2f} blocks/min, {pbs / t_ctr:.0f} PBS/s)")
 

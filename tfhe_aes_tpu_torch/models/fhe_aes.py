@@ -35,7 +35,7 @@ from . import aes_plain, luts, tables
 from ..ops import graphs, wopbs
 from ..ops.keys import DeviceKeys
 from ..utils import device as device_mod
-from ..utils import noise_asserts, torus
+from ..utils import noise_asserts, profiling, torus
 
 # Column-major ShiftRows permutation: new[i] = old[SHIFT[i]].
 SHIFT = tuple(aes_plain._SHIFT)
@@ -250,6 +250,7 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
         rcon_fresh = rcon_cts is not None
     if rcon_cts is None:
         rcon_cts = _on(enc_key, trivial_rcon, p)
+    profiling.mark(enc_key, open=("key_expansion",))
     sbox_l = _on(enc_key, _sbox_lut, p, False)
     rot_word = _index(enc_key, (1, 2, 3, 0))
     rk = enc_key
@@ -271,7 +272,9 @@ def aes_key_expansion(keys: DeviceKeys, enc_key, rcon_cts=None, *,
         w3 = rk.reshape(4, 4, 8, rk.shape[-1])[3]
         sub = wopbs.many_wopbs_jit(keys, w3[rot_word], sbox_l)
         rks += _expand_rounds(keys, rk, sub, rcon_cts)
-    return torch.stack(rks)
+    out = torch.stack(rks)
+    profiling.mark(out, close=("key_expansion",))
+    return out
 
 
 def _expand_rounds(keys: DeviceKeys, rk, sub, rcon_cts) -> list:
@@ -281,10 +284,12 @@ def _expand_rounds(keys: DeviceKeys, rk, sub, rcon_cts) -> list:
     last_word = _index(rk, (13, 14, 15, 12))
     rks = []
     for r in range(rcon_cts.shape[0]):
-        out = wopbs.many_wopbs_jit(keys, _expand_glue(rk, sub, rcon_cts[r]),
-                                   refresh_sbox_l)
-        rk = out[:, :8]
-        sub = out[last_word, 8:]
+        with profiling.span("glue"):
+            words = _expand_glue(rk, sub, rcon_cts[r])
+        out = wopbs.many_wopbs_jit(keys, words, refresh_sbox_l)
+        with profiling.span("glue"):
+            rk = out[:, :8]
+            sub = out[last_word, 8:]
         rks.append(rk)
     return rks
 
@@ -299,16 +304,25 @@ def aes_key_expansion_staged(keys: DeviceKeys, enc_key):
     with the rounds' {identity, S-box} stack, and keeps outputs [12:16,
     8:], the S-box of RotWord(w3).  So all 11 WoPBS replay one captured
     graph (ops/graphs.py), at the cost of one 128-bit rotate in place of
-    a 32-bit one in the prologue.
+    a 32-bit one in the prologue.  The eager work between the replays is
+    the host span "glue" (utils/profiling.py), the whole the device span
+    "key_expansion".
     """
     p = keys.params
     refresh_sbox_l = _on(enc_key, _refresh_sbox_lut, p)
     order = _index(enc_key, tuple(range(12)) + (13, 14, 15, 12))
-    out = wopbs.many_wopbs_jit(keys, enc_key[order], refresh_sbox_l)
-    sub = out[12:16, 8:]
+    profiling.mark(enc_key, open=("key_expansion",))
+    with profiling.span("glue"):
+        words = enc_key[order]
+    out = wopbs.many_wopbs_jit(keys, words, refresh_sbox_l)
+    with profiling.span("glue"):
+        sub = out[12:16, 8:]
     rks = [enc_key] + _expand_rounds(keys, enc_key, sub,
                                      _on(enc_key, trivial_rcon, p))
-    return torch.stack(rks)
+    with profiling.span("glue"):
+        out = torch.stack(rks)
+    profiling.mark(out, close=("key_expansion",))
+    return out
 
 
 def add_scalar_luts(params, i_bytes: np.ndarray):
@@ -359,11 +373,17 @@ def add_scalar_device(keys: DeviceKeys, state, lut_lsb, luts_rest):
 def ctr_step(keys: DeviceKeys, round_keys, enc_iv, lut_lsb, luts_rest,
              byte_group=None):
     """One CTR batch: broadcast IV -> ripple-add counters -> AES, each
-    round's bytes split over byte_group (aes_encrypt) when given."""
+    round's bytes split over byte_group (aes_encrypt) when given.  Device
+    marks (utils/profiling.py) split the span "ctr_step" into
+    "ripple_add" and "aes_rounds"."""
     B = lut_lsb.shape[0]
     state = enc_iv[None].expand((B,) + enc_iv.shape)
+    profiling.mark(enc_iv, open=("ctr_step", "ripple_add"))
     state = add_scalar_device(keys, state, lut_lsb, luts_rest)
-    return aes_encrypt(keys, round_keys, state, byte_group=byte_group)
+    profiling.mark(state, close=("ripple_add",), open=("aes_rounds",))
+    out = aes_encrypt(keys, round_keys, state, byte_group=byte_group)
+    profiling.mark(out, close=("aes_rounds", "ctr_step"))
+    return out
 
 
 # -- the whole-function dispatch units -----------------------------------------
@@ -414,7 +434,9 @@ class _Unit:
     fn(keys, *args): the function, args its tensors then its static
     arguments.  wopbs(*args): the WoPBS it runs (the Counters above).
     first(*args): the arguments of its warm-up call, the first block of
-    every batch-leading tensor (the key schedule's: its first round)."""
+    every batch-leading tensor (the key schedule's: its first round).
+    name: the unit's, for its counters (utils/profiling.UNITS)."""
+    name: str
     fn: Callable
     wopbs: Callable
     first: Callable
@@ -449,7 +471,7 @@ class _Unit:
             return self.fn(keys, *tensors, *static)
         caps = wopbs.decide_caps(keys, self.wopbs(*tensors, *static))
         return graphs.GRAPHS(self, keys, tensors, static + (caps,),
-                             warm=self.warm)
+                             warm=self.warm, name=self.name)
 
 
 def _key_expansion(keys: DeviceKeys, enc_key, rcon_cts, rcon_fresh: bool):
@@ -457,25 +479,25 @@ def _key_expansion(keys: DeviceKeys, enc_key, rcon_cts, rcon_fresh: bool):
 
 
 _ADD_SCALAR = _Unit(
-    add_scalar_device,
+    "add_scalar", add_scalar_device,
     lambda state, lut_lsb, luts_rest: _ripple_wopbs(lut_lsb, luts_rest),
     lambda state, lut_lsb, luts_rest: (state[:1], lut_lsb[:1],
                                        luts_rest[:, :1]))
 _CTR_STEP = _Unit(
-    ctr_step,
+    "ctr_step", ctr_step,
     lambda rks, iv, lut_lsb, luts_rest, *group: (
         _ripple_wopbs(lut_lsb, luts_rest)
         + _encrypt_wopbs(lut_lsb.shape[0], *group)),
     lambda rks, iv, lut_lsb, luts_rest, *group: (rks, iv, lut_lsb[:1],
                                                  luts_rest[:, :1], *group))
-_ENCRYPT = _Unit(aes_encrypt,
+_ENCRYPT = _Unit("encrypt", aes_encrypt,
                  lambda rks, state: _encrypt_wopbs(state.shape[0]),
                  lambda rks, state: (rks, state[:1]))
-_DECRYPT = _Unit(aes_decrypt,
+_DECRYPT = _Unit("decrypt", aes_decrypt,
                  lambda rks, state: _decrypt_wopbs(state.shape[0]),
                  lambda rks, state: (rks, state[:1]))
 _KEY_EXPANSION = _Unit(
-    _key_expansion,
+    "key_expansion", _key_expansion,
     lambda enc_key, rcon_cts, rcon_fresh: _key_expansion_wopbs(rcon_cts,
                                                                rcon_fresh),
     lambda enc_key, rcon_cts, rcon_fresh: (enc_key, rcon_cts[:1],
@@ -554,11 +576,13 @@ def ctr_keystream(keys: DeviceKeys, round_keys, enc_iv, n_blocks: int,
     balanced chunks of at most block_chunk blocks, the ragged last one
     wrap-padded with the first blocks, so every chunk replays one graph.
     Both give the same words.  The LUTs are built on the host, outside
-    every unit."""
-    lut_lsb, luts_rest = add_scalar_luts(keys.params,
-                                         counter_bytes(n_blocks, offset))
-    lut_lsb, luts_rest = (torus.from_u64(t, enc_iv.device)
-                          for t in (lut_lsb, luts_rest))
+    every unit (the host spans "luts" and "lut_upload")."""
+    with profiling.span("luts"):
+        lut_lsb, luts_rest = add_scalar_luts(keys.params,
+                                             counter_bytes(n_blocks, offset))
+    with profiling.span("lut_upload"):
+        lut_lsb, luts_rest = (torus.from_u64(t, enc_iv.device)
+                              for t in (lut_lsb, luts_rest))
     if block_chunk is None or n_blocks <= block_chunk:
         return ctr_step_jit(keys, round_keys, enc_iv, lut_lsb, luts_rest)
     state = enc_iv[None].expand((n_blocks,) + enc_iv.shape)

@@ -33,11 +33,16 @@ device of every tensor argument:
   * a failed capture raises; nothing retries eagerly.  On CPU tensors the
     function runs eagerly: there is nothing to capture;
   * the kernels' launch counters (``blind_rotate_cuda.launches``,
-    ``vp_rotations_cuda.launches``) keep counting executions: the warm-up
-    call counts itself, a capture records how many launches its graph
-    holds and adds nothing, and each replay, the first call's too, adds
-    that many.  ``kernel_nodes`` reads the kernel nodes a graph really
-    holds, to check those numbers on the card.
+    ``vp_rotations_cuda.launches``, the device marks' ``profiling.
+    mark_cuda.launches``) keep counting executions: the warm-up call
+    counts itself, a capture records how many launches its graph holds
+    and adds nothing, and each replay, the first call's too, adds that
+    many.  The same goes for the WoPBS runs and the marks' labels that
+    utils/profiling.py counts and logs, and each unit's warm-up calls,
+    captures and replays are counted there by its name; the warm-up,
+    capture, static-buffer copies, replay and clone are its host spans.
+    ``kernel_nodes`` reads the kernel nodes a graph really holds, to check
+    those numbers on the card.
 
 A unit may be a whole function that runs many WoPBS (models/fhe_aes's
 ``ctr_step_jit``, ``aes_encrypt_jit`` ...).  While a unit's warm-up call or
@@ -75,6 +80,8 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 
 def capturable(group) -> bool:
     """Whether a capture can hold the collectives of `group`: an NCCL
@@ -86,9 +93,11 @@ def capturable(group) -> bool:
 
 
 def kernel_counters() -> tuple:
-    """The wrappers whose ``launches`` a graph's replays add to."""
+    """The wrappers whose ``launches`` a graph's replays add to: the
+    rotate's, VP's and the device marks' (utils/profiling.py)."""
     from . import cuda_blind_rotate, cuda_vp
-    return cuda_blind_rotate.blind_rotate_cuda, cuda_vp.vp_rotations_cuda
+    return (cuda_blind_rotate.blind_rotate_cuda, cuda_vp.vp_rotations_cuda,
+            profiling.mark_cuda)
 
 
 class CudaCapture:
@@ -185,11 +194,16 @@ def memcpy_nodes(graph: "Graph", path) -> collections.Counter:
 @dataclasses.dataclass
 class Graph:
     """One captured call: its static buffers, the graph (``replay()``),
-    and the launches of each counted kernel it holds."""
+    the launches of each counted kernel it holds, the labels of the
+    device marks it holds in order, its WoPBS runs by shape, and the name
+    of its unit."""
     graph: object
     inputs: tuple
     output: torch.Tensor
     held: tuple
+    marks: tuple = ()
+    wopbs: dict = dataclasses.field(default_factory=dict)
+    name: str = ""
 
 
 class GraphCache:
@@ -270,13 +284,15 @@ class GraphCache:
     def __call__(self, fn: Callable, owner, tensors: tuple, static=(), *,
                  warm: Callable | None = None,
                  before: Callable | None = None,
-                 after: Callable | None = None):
+                 after: Callable | None = None,
+                 name: str | None = None):
         """fn(owner, *tensors, *static) -> a tensor, graphed.
         warm(owner, *tensors, *static), run eagerly before a capture,
         prepares what the capture cannot (default: fn).  before(*inputs)
         runs on the inputs the call computes on (the static buffers of a
         graph) and after(output) on what it returns, once each a call,
-        outside any capture."""
+        outside any capture.  name: the unit's, for its counters
+        (utils/profiling.UNITS; default fn's)."""
         capture = self.capture or (self.cuda if tensors[0].is_cuda
                                    else None)
         if capture is not None and self.inside():
@@ -299,43 +315,63 @@ class GraphCache:
             if graph is None:
                 graph = table[key] = self._capture(
                     capture, run, lambda: (warm or fn)(owner, *tensors,
-                                                       *static), tensors)
-            for buf, t in zip(graph.inputs, tensors):
-                buf.copy_(t)
+                                                       *static), tensors,
+                    name or fn.__name__)
+            with profiling.span("copy_in"):
+                for buf, t in zip(graph.inputs, tensors):
+                    buf.copy_(t)
             if before is not None:
                 before(*graph.inputs)
-            graph.graph.replay()
-            self.replays += 1
-            for wrapper, n in zip(self.counters(), graph.held):
-                wrapper.launches += n
-            out = graph.output.clone()
+            with profiling.span("replay"):
+                graph.graph.replay()
+                self.replays += 1
+                profiling.count_unit(graph.name, "replays")
+                for wrapper, n in zip(self.counters(), graph.held):
+                    wrapper.launches += n
+                profiling.replayed(graph.output.device, graph.marks,
+                                   graph.wopbs)
+            with profiling.span("clone"):
+                out = graph.output.clone()
         if after is not None:
             after(out)
         return out
 
     def _capture(self, capture, run: Callable, warm: Callable,
-                 tensors: tuple) -> Graph:
+                 tensors: tuple, name: str) -> Graph:
         """The graph of run on static buffers shaped as `tensors`."""
         inputs = tuple(torch.empty_like(
             t, memory_format=torch.contiguous_format) for t in tensors)
         wrappers = self.counters()
-        held = []
+        held, recorded = [], []
+        profiling.prepare(tensors[0].device)
+
+        def warm_up():
+            with profiling.span("warm_up"):
+                profiling.count_unit(name, "warm_ups")
+                return warm()
 
         def counted():
             """run(*inputs) under capture: what it launches is recorded as
-            the graph's and taken off the counters again."""
+            the graph's and taken off the counters again; its marks and
+            WoPBS are recorded, not counted."""
             before = [w.launches for w in wrappers]
             try:
-                return run(*inputs)
+                with profiling.span("capture"), profiling.recording() as rec:
+                    recorded[:] = [rec]
+                    return run(*inputs)
             finally:
                 held[:] = [w.launches - n for w, n in zip(wrappers, before)]
                 for w, n in zip(wrappers, held):
                     w.launches -= n         # a capture launches nothing
 
         with self.unit():
-            graph, output = capture.capture(tensors[0].device, warm, counted)
+            graph, output = capture.capture(tensors[0].device, warm_up,
+                                            counted)
         self.captures += 1
-        return Graph(graph, inputs, output, tuple(held))
+        profiling.count_unit(name, "captures")
+        rec = recorded[0] if recorded else profiling.Record()  # fn not run
+        return Graph(graph, inputs, output, tuple(held), tuple(rec.labels),
+                     dict(rec.wopbs), name)
 
 
 GRAPHS = GraphCache()

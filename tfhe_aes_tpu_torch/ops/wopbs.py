@@ -16,7 +16,7 @@ import threading
 
 import torch
 
-from ..utils import noise_asserts
+from ..utils import noise_asserts, profiling
 from . import cbs as cbs_mod
 from . import graphs, keyswitch, vertical_packing
 from .keys import ContractionShard, DeviceKeys
@@ -43,6 +43,7 @@ def _stage_and_pack(keys: DeviceKeys, bigs: torch.Tensor, nbytes: int,
     g = cbs_mod.cbs_stage_ggsw(keys, bigs)       # [P, nbytes*nbits, ...]
     g = g.reshape((g.shape[0], nbytes, nbits) + g.shape[2:])
     ggsw = g.movedim(2, 0).contiguous()           # [nbits, P, nbytes, ...]
+    profiling.mark(ggsw, close=("staging",), open=("vp",))
     return vertical_packing.vertical_packing(keys, ggsw, lut_polys)
 
 
@@ -179,21 +180,29 @@ def _many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     """many_wopbs under a resolved chunk cap, without the noise checks:
     on the card, every op is a device op (no host copy, no sync), so the
     whole of it can be captured, with the collectives of a contraction
-    shard over NCCL."""
+    shard over NCCL.  Device marks split it into its stages (utils/
+    profiling.py): extract, cbs_rotate, then staging and vp a chunk."""
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
+    profiling.count_wopbs((B, lut_polys.shape[1], nbits))
+    profiling.mark(byte_bits_big, open=("wopbs", "extract"))
     small = extract_bits(keys, byte_bits_big)
+    profiling.mark(small, close=("extract",), open=("cbs_rotate",))
     bigs = cbs_mod.cbs_pbs_levels(keys, small.reshape(B * nbits, -1))
     lev, np1 = bigs.shape[0], bigs.shape[-1]
     bigs = bigs.reshape(lev, B, nbits, np1)
     bc = _chunk_size(B, cap)
-    outs = []
+    outs, stage = [], "cbs_rotate"
     for lo in range(0, B, bc):
         hi = min(B, lo + bc)
         luts = lut_polys if lut_polys.shape[0] == 1 else lut_polys[lo:hi]
+        profiling.mark(bigs, close=(stage,), open=("staging",))
         outs.append(_stage_and_pack(
             keys, bigs[:, lo:hi].reshape(lev, (hi - lo) * nbits, np1),
             hi - lo, nbits, luts))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+        stage = "vp"
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    profiling.mark(out, close=("vp", "wopbs"))
+    return out
 
 
 def _one_byte(keys: DeviceKeys, byte_bits_big: torch.Tensor,
@@ -268,4 +277,4 @@ def many_wopbs_jit(keys: DeviceKeys, byte_bits_big: torch.Tensor,
         lambda: _agreed(keys, vp_chunk or chunk_bytes(keys, *shape)))
     return graphs.GRAPHS(_many_wopbs, keys, (byte_bits_big, lut_polys),
                          (cap,), warm=_one_byte, before=_check_input,
-                         after=_check_output)
+                         after=_check_output, name="wopbs")

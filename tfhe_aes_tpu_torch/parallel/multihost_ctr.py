@@ -72,11 +72,11 @@ def _launch_counts() -> dict:
 def worker(args) -> None:
     import torch.distributed as dist
 
-    from ..bench import device_record
     from ..cli import NIST_KEY as KEY
     from ..client.client import Client
     from ..models import aes_plain, fhe_aes
     from ..ops import graphs
+    from ..utils import device as device_mod
     from ..utils import profiling, serialization, torus
     from . import mesh as mesh_mod
 
@@ -134,7 +134,7 @@ def worker(args) -> None:
         "verified_local": verified, "seconds": round(dt, 3),
         "blocks_per_min": round(B / dt * 60.0, 2),
         "shard_keys": bool(args.shard_keys),
-        "device": device_record(m.device)}
+        "device": device_mod.record(m.device)}
     if launches:
         record["launches"] = launches
     print(json.dumps(record), flush=True)

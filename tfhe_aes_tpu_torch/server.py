@@ -7,7 +7,8 @@ tensors of u64 words on that device.  With the public key it encrypts
 RCON itself, for the reference-faithful key schedule.  Its circuits
 dispatch through the compiled units of models/fhe_aes (aes_encrypt_jit,
 aes_decrypt_jit, aes_key_expansion_jit, ctr_step_jit ...), as the JAX
-server's do.
+server's do.  Its key schedule and keystream calls are the top-level
+host spans of utils/profiling.py: one request each.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from .models import fhe_aes, tables
 from .ops.keys import DeviceKeys
-from .utils import csprng, torus
+from .utils import csprng, profiling, torus
 
 
 class Server:
@@ -45,10 +46,11 @@ class Server:
         captured graph), as the JAX server dispatches it.
         pk_rcon=True: RCON encrypted by this server, three per round,
         through fhe_aes.aes_key_expansion_jit (one graph)."""
-        if not pk_rcon:
-            return fhe_aes.aes_key_expansion_staged(self.dkeys, enc_key)
-        rcon = torus.from_u64(self.encrypt_rcon(), enc_key.device)
-        return fhe_aes.aes_key_expansion_jit(self.dkeys, enc_key, rcon)
+        with profiling.span("aes_key_expansion"):
+            if not pk_rcon:
+                return fhe_aes.aes_key_expansion_staged(self.dkeys, enc_key)
+            rcon = torus.from_u64(self.encrypt_rcon(), enc_key.device)
+            return fhe_aes.aes_key_expansion_jit(self.dkeys, enc_key, rcon)
 
     def aes_encrypt(self, round_keys, state):
         return fhe_aes.aes_encrypt_jit(self.dkeys, round_keys, state)
@@ -64,6 +66,7 @@ class Server:
                       offset: int = 0, *, block_chunk: int | None = None):
         """FHE keystream AES(key, iv + offset + t), t < n_blocks
         (block_chunk: fhe_aes.ctr_keystream)."""
-        return fhe_aes.ctr_keystream(self.dkeys, round_keys, enc_iv,
-                                     n_blocks, offset,
-                                     block_chunk=block_chunk)
+        with profiling.span("ctr_keystream"):
+            return fhe_aes.ctr_keystream(self.dkeys, round_keys, enc_iv,
+                                         n_blocks, offset,
+                                         block_chunk=block_chunk)

@@ -22,6 +22,14 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def record(device: torch.device):
+    """What the numbers ran on: the card's name and count, or "cpu"."""
+    if device.type == "cuda":
+        return {"name": torch.cuda.get_device_name(device),
+                "count": torch.cuda.device_count()}
+    return "cpu"
+
+
 def canonical(device) -> torch.device:
     """`device` with its index: "cuda" and "cuda:0" name one card."""
     dev = torch.device(device)

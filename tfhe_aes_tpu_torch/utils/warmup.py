@@ -5,9 +5,10 @@ XLA/Mosaic compiles behind key generation; the port's cold costs are of
 another kind, and each is paid here, in background threads, while keygen
 or the key-cache load runs on the caller's thread:
 
-  * ``nvcc_<kernel>``: both kernel libraries built at once, one nvcc
-    each (ops/cuda_build.load; a subprocess releases the GIL).  Without
-    this they build one after the other inside the first WoPBS;
+  * ``nvcc_<kernel>``: the kernel libraries (the rotate, VP and the
+    device marks of utils/profiling.py) built at once, one nvcc each
+    (ops/cuda_build.load; a subprocess releases the GIL).  Without this
+    they build one after the other inside the first WoPBS;
   * ``tiles``: the card's context, the shared constant leaves on the
     device (ops/keys.constant_leaves) and the kernels' tile-ordered forms
     of them (ops/cuda_build.derived), which the real keys' calls then find;
@@ -36,7 +37,7 @@ from ..params import ParamSet
 from . import device as device_mod
 from . import torus
 
-KERNELS = ("blind_rotate", "vertical_packing")
+KERNELS = ("blind_rotate", "vertical_packing", "marks")
 
 
 def _tiles(params: ParamSet, device: torch.device) -> None:
