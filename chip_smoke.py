@@ -11,8 +11,11 @@ the script exits non-zero:
      PARAM_TPU at every batch the paths below give it (16 to 1024 bits,
      and phase 7's 64-block AES round, 8192 bits, timed) and at
      PARAM_OPT (the CLI's default set, 25 rows) at the batches of its
-     4-block CTR, each timed beside its bound; then torch._int_mm on one
-     step's product shapes as a yardstick of the int8 product rate;
+     4-block CTR on both of K2's paths (one block a tile; a cluster of one
+     block a prime, which cuda_blind_rotate.k2_cluster picks for batches
+     of up to 128 bits on the H100), each timed beside its bound; then
+     torch._int_mm on one step's product shapes as a yardstick of the
+     int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
      circuit bootstrap: two cbs_level=1 toy sets (k+1 = 3; k+1 = 5 at a
      batch that fills neither a digit tile's group of 25 accumulators nor
@@ -1043,6 +1046,7 @@ def _eager_wopbs():
 # step (K1, K2) and per call (the decomposition), the VP's per selector bit.
 ROTATE_NODES = ("br_forward_mac_kernel", "br_inverse_crt_kernel")
 ROTATE_ONCE = "br_decompose_kernel"
+ROTATE_SPLIT = "br_inverse_crt_kernelILb1E"    # K2 as clusters, mangled
 VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
             "vp_inverse_crt_kernel")
 
@@ -1050,8 +1054,9 @@ VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
 def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     """The kernel nodes of a captured graph, by kernel, against what its
     replays add to the launch counts (graph.held: rotate and VP calls,
-    device marks): a call of the rotate is one decomposition and n (the
-    LWE dimension) steps of K1 and K2, a call of VP one of each of its
+    device marks, rotate calls whose K2 ran split): a call of the rotate is
+    one decomposition and n (the LWE dimension) steps of K1 and K2 (the
+    split instance of K2 in a split call), a call of VP one of each of its
     three kernels a rotated selector bit (min(nbits, log2 N) a call:
     vp_bits in all), a mark one node, as many as the labels the capture
     recorded."""
@@ -1059,12 +1064,13 @@ def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     from tfhe_aes_tpu_torch.utils import profiling
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
-    rot, _, marks = graph.held
+    rot, _, marks, split = graph.held
     if marks != len(graph.marks):
         raise AssertionError(f"{what}: the graph counts {marks} marks, its "
                              f"capture recorded {len(graph.marks)}")
     want = {ROTATE_ONCE: rot,
             **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
+            ROTATE_SPLIT: split * p.lwe_dimension,
             **{k: vp_bits for k in VP_NODES},
             profiling.MARK_KERNEL: marks}
     got = {k: sum(n for name, n in nodes.items() if k in name)
@@ -1572,25 +1578,50 @@ def main() -> int:
 
     # The CLI's default set: 8-bit digits (dn = N), 25 GGSW rows a bit; at
     # the batches of phase 7's 4-block CTR (ripple steps, AES rounds) and
-    # of its key expansion (4-byte SubWord, 16-byte rounds).
+    # of its key expansion (4-byte SubWord, 16-byte rounds).  Each batch
+    # on both of K2's paths (cuda_blind_rotate.k2_cluster forced: one block
+    # a tile, or a cluster of one block a prime), each path's median of 3
+    # beside the one the rule takes.
     t0 = time.perf_counter()
     cl_opt = Client(PARAM_OPT, seed=0)
     k_opt = cl_opt.make_device_keys(fast=True, device=dev)
     torch.cuda.synchronize()
     print(f"phase 1: PARAM_OPT device keygen "
           f"{time.perf_counter() - t0:.1f} s")
+    rule = cuda_blind_rotate.k2_cluster
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n_batch in sorted({8 * OPT_BLOCKS, 9 * OPT_BLOCKS, 128 * OPT_BLOCKS,
                            32, 128}):
         small, test = rotate_inputs(PARAM_OPT, n_batch, cl_opt.sk.lwe_key)
-        got, want, ms, plain_ms = rotate_pair(k_opt, PARAM_OPT, small, test)
-        br_err = max(br_err, _require_equal(
-            got, want, f"blind rotate PARAM_OPT B={n_batch}"))
+        br_args = (k_opt.rplan, PARAM_OPT, k_opt.bsk_limbs, small, test)
+        want, plain_ms = _timed(blind_rotate.blind_rotate_plain, *br_args,
+                                k_opt.rfwd_limbs, k_opt.rinv_crt_limbs,
+                                k_opt.rot_table)
+        path_ms = {}
+        try:
+            for path in ("unsplit", "split"):
+                cuda_blind_rotate.k2_cluster = (
+                    lambda p, b, n, sm, path=path: n if path == "split" else 1)
+                got, path_ms[path] = _median_ms(
+                    cuda_blind_rotate.blind_rotate_cuda, *br_args,
+                    k_opt.fwd_full, k_opt.inv_crt_full, k_opt.rot_table)
+                br_err = max(br_err, _require_equal(
+                    got, want, f"blind rotate PARAM_OPT B={n_batch} {path}"))
+        finally:
+            cuda_blind_rotate.k2_cluster = rule
+        taken = "split" if rule(PARAM_OPT, n_batch, k_opt.rplan.n_primes,
+                                sms) > 1 else "unsplit"
         bound, bound_by = rotate_bound(PARAM_OPT, k_opt.rplan, n_batch)
-        br_shapes.append({"shape": f"PARAM_OPT {n_batch} bits", "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound})
+        br_shapes.append({"shape": f"PARAM_OPT {n_batch} bits",
+                          "ms": path_ms[taken], "plain_ms": plain_ms,
+                          "bound_ms": bound, "k2": taken,
+                          "unsplit_ms": path_ms["unsplit"],
+                          "split_ms": path_ms["split"]})
         print(f"phase 1: blind rotate PARAM_OPT kernel == plain at "
-              f"B={n_batch}: kernel {ms:.1f} ms, plain {plain_ms:.1f} ms, "
-              f"bound {bound:.2f} ms ({bound_by})")
+              f"B={n_batch} on both K2 paths: unsplit "
+              f"{path_ms['unsplit']:.1f} ms, split {path_ms['split']:.1f} "
+              f"ms (the rule: {taken}), plain {plain_ms:.1f} ms, bound "
+              f"{bound:.2f} ms ({bound_by})")
     del got, want, small, test, k_opt, cl_opt
 
     # Yardstick of the int8 product rate: torch._int_mm on one PARAM_TPU

@@ -59,20 +59,62 @@ def _rotate_inputs(client, n_batch):
     return small, test
 
 
-@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE,
-                                    PARAM_TOY_R25], ids=lambda p: p.name)
-@pytest.mark.parametrize("n_batch", [1, 9, 128])
-def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
-    client, k = _keys(params, 11, dev)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _last_split_batch(params, n_primes, sm_count) -> int:
+    """The largest batch whose K2 runs as clusters on this card."""
+    n = 1
+    while cuda_blind_rotate.k2_cluster(params, n + 1, n_primes,
+                                       sm_count) > 1:
+        n += 1
+    return n
+
+
+def _rotate_matches_plain(dev, params, k, client, n_batch):
+    """The kernel's words equal the plain version's, and the call counts as
+    split iff k2_cluster says so."""
     small, test = _rotate_inputs(client, n_batch)
     args = (k.rplan, params, k.bsk_limbs, torus.from_u64(small, dev),
             torus.from_u64(test, dev))
     want = blind_rotate.blind_rotate_plain(*args, k.rfwd_limbs,
                                            k.rinv_crt_limbs, k.rot_table)
+    before = cuda_blind_rotate.k2_split.launches
     got = cuda_blind_rotate.blind_rotate_cuda(*args, k.fwd_full,
                                               k.inv_crt_full, k.rot_table)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    split = cuda_blind_rotate.k2_cluster(params, n_batch, k.rplan.n_primes,
+                                         _sm_count(dev)) > 1
+    assert cuda_blind_rotate.k2_split.launches - before == int(split)
+    return split
+
+
+@pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE,
+                                    PARAM_TOY_R25], ids=lambda p: p.name)
+@pytest.mark.parametrize("n_batch", [1, 9, 128, "last split", "first unsplit"])
+def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
+    """Both K2 paths: the small batches and the largest batch of the
+    card's rule run split (a cluster of one block a prime a tile), the
+    next batch one block a tile."""
+    client, k = _keys(params, 11, dev)
+    if isinstance(n_batch, str):
+        last = _last_split_batch(params, k.rplan.n_primes, _sm_count(dev))
+        n_batch = last if n_batch == "last split" else last + 1
+    split = _rotate_matches_plain(dev, params, k, client, n_batch)
+    assert split == (n_batch <= _last_split_batch(
+        params, k.rplan.n_primes, _sm_count(dev)))
+
+
+def test_blind_rotate_kernel_matches_plain_at_param_opt_split(dev):
+    """PARAM_OPT (25 GGSW rows, 8-bit digits) at 9 bits, the ripple add's
+    batch of a one-block session: K2 as clusters, on the keys of
+    chip_smoke.py's kernel phase (device keygen, seed 0)."""
+    from tfhe_aes_tpu_torch.params import PARAM_OPT
+    client = Client(PARAM_OPT, seed=0)
+    k = client.make_device_keys(fast=True, device=dev)
+    assert _rotate_matches_plain(dev, PARAM_OPT, k, client, 9)
 
 
 _VP_TABLES = {                      # LUT stacks of the AES circuits
@@ -210,8 +252,9 @@ def test_graphed_wopbs_equals_eager_and_replays_count(dev, params):
     wrappers = graphs.kernel_counters()
     first = wopbs.many_wopbs_jit(k, runs[0], lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
+    # A toy rotate's K2 runs split (clusters of one block a prime).
     assert graph.held == (params.cbs_level, int(params.cbs_level == 1),
-                          len(graph.marks))
+                          len(graph.marks), params.cbs_level)
     counts = [w.launches for w in wrappers]
     second = wopbs.many_wopbs_jit(k, runs[1], lut)
     assert [w.launches - n for w, n in zip(wrappers, counts)] == \
@@ -340,10 +383,13 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     wopbs.many_wopbs_jit(k, cts, lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
-    rot, vp, marks = graph.held
+    rot, vp, marks, split = graph.held
+    assert split == rot                 # toy batches: K2 runs split
     n, bits = params.lwe_dimension, min(8, params.log2_poly_size)
     want = {"br_decompose_kernel": rot, "br_forward_mac_kernel": n * rot,
-            "br_inverse_crt_kernel": n * rot, "vp_digits_kernel": bits * vp,
+            "br_inverse_crt_kernel": n * rot,
+            "br_inverse_crt_kernelILb1E": n * split,    # the split K2
+            "vp_digits_kernel": bits * vp,
             "vp_forward_mac_kernel": bits * vp,
             "vp_inverse_crt_kernel": bits * vp, "tfhe_mark": marks}
     assert {name: sum(c for f, c in nodes.items() if name in f)
@@ -423,7 +469,7 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     static = key[1]
     runs = key[0].wopbs(*graph.inputs, *static[:-1])
     n_wopbs = sum(runs.values())
-    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks))
+    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks), n_wopbs)
     assert all(cap >= shape[0] for shape, cap in static[-1])  # one chunk
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
     bits = sum(c * min(s[2], PARAM_TOY_VP.log2_poly_size)

@@ -89,6 +89,28 @@ def test_barrett32_refuses_out_of_range():
                                PRIMES[0])
 
 
+# -- K2's launch: one block a tile, or a cluster of one block a prime --------
+
+@pytest.mark.parametrize("params,bits,primes,want", [
+    (PARAM_OPT, 8, 5, 5), (PARAM_OPT, 9, 5, 5),      # a session's ripple add
+    (PARAM_OPT, 128, 5, 5),          # key schedule, rounds: 80 tiles < 88
+    (PARAM_OPT, 144, 5, 1),          # bulk ripple add, 96 tiles
+    (PARAM_OPT, 2048, 5, 1),         # bulk rounds, 1280 tiles
+    (PARAM_TOY, 9, 3, 3),            # fewer primes: a cluster of P
+    (PARAM_TOY, 896, 3, 3),          # 4 x 21 = 84 tiles
+    (PARAM_TOY, 897, 3, 1),          # 4 x 22 = 88 tiles
+    (PARAM_TOY, 9, 1, 1),            # one prime: nothing to split
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_k2_splits_below_a_third_of_the_h100(params, bits, primes, want):
+    """K2's tiles, (N / 32) x (rows2 / 128), under a third of the 264
+    blocks the H100's 132 SMs hold (2 an SM) run as clusters of one block
+    a prime; from 88 tiles on, one block a tile streams every prime."""
+    assert cbr.k2_cluster(params, bits, primes, 132) == want
+    _, rows2 = cbr.scratch_rows(params, bits)
+    tiles = params.polynomial_size // cbr.K2_COLS * rows2 // cbr.TILE_ROWS
+    assert (tiles < 88) == (want > 1 or primes == 1)
+
+
 def test_kmajor_tiles_layout():
     rows, k = 24, 192
     m = torch.arange(rows * k, dtype=torch.int32).reshape(rows, k)

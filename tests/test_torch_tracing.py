@@ -227,6 +227,36 @@ def test_unit_counters_under_the_stub_capture(monkeypatch, stand_in_stages):
     assert graph.held == (0, 0, 0)          # the CPU launches no kernel
 
 
+def test_split_rotates_count_as_launches_do_under_the_stub_capture(
+        monkeypatch):
+    """The rotate calls whose K2 ran split count as the launches do: the
+    warm-up call counts itself, a capture nothing, each replay what its
+    graph holds; report() shows them beside the rotate calls.  A PARAM_OPT
+    16-block request's 26 rotates on the H100's 132 SMs: the ripple add's
+    first (128 bits) splits, its 15 later (144 bits) and the rounds' ten
+    (2048 bits) do not."""
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
+    from tfhe_aes_tpu_torch.params import PARAM_OPT
+    monkeypatch.setattr(cbr.blind_rotate_cuda, "launches", 0)
+    monkeypatch.setattr(cbr.k2_split, "launches", 0)
+    cache = graphs.GraphCache(capture=StubCapture())
+    bits = [128] + [144] * 15 + [2048] * 10
+
+    def request(owner, x):
+        for b in bits:
+            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132))
+        return x + 1
+
+    owner = ToyKeys()
+    for n in (1, 2, 3):
+        cache(request, owner, (torch.arange(4),))
+        counters = profiling.report()["counters"]
+        assert (counters["rotate_calls"], counters["rotate_split_calls"]) \
+            == (26 * (n + 1), n + 1)
+    (graph,) = cache.graphs(owner).values()
+    assert graph.held == (26, 0, 0, 1)
+
+
 # -- the ring decoder ---------------------------------------------------------
 
 def _synthetic(monkeypatch, slots, entries, ring):

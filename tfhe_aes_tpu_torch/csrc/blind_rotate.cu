@@ -56,15 +56,19 @@
 // tiles of one row tile together, so the A tile is read from L2.  A K2
 // block owns 128 rows of (bit, GLWE component) and 32 output coefficients
 // across all primes, two blocks an SM, so one block's epilogue overlaps
-// the other's products and small batches still fill some of the card.
+// the other's products.  Where that grid fills under a third of the card
+// (at N = 512 on the H100 a batch of up to 128 bits: every rotate of a
+// session), a block streaming all P x 2N / 64 stages in one chain is what a
+// step waits for: there K2 runs a thread-block cluster of P blocks a tile,
+// one prime a block, which share the CRT's rows through distributed shared
+// memory (the chain P times shorter, the epilogue split P ways).
 //
 // Left for later: K1's epilogue (the residues, the MAC, the twiddle) costs
 // about as much as its products at 4096 bits; L2 traffic does not bound it
 // (clusters of two CTAs sharing the fwd tile through multicast copies gave
 // the same words but ran slower).
-// At small batches K2's few blocks each stream all primes in turn.  A
-// persistent step loop or a CUDA graph of the 2n launches would remove the
-// launch gaps.
+// A persistent step loop would remove the gaps between the 2n launches
+// (a CUDA graph of the WoPBS already holds them).
 //
 // Exact by construction: the products are exact int32 sums, the reductions
 // exact, and the CRT alpha uses the same 2^-40 fixed point as the plain
@@ -288,6 +292,17 @@ br_forward_mac_kernel(const int8_t* __restrict__ A,
 // K2: per-prime inverse products -> canonical residues (shared memory) ->
 // CRT -> acc += delta (mod 2^q) -> the next step's digits (A == nullptr on
 // the last step), for 128 (bit, component) rows x 32 coefficients.
+//
+// kSplit = false: one block a (coefficient tile, row tile) streams every
+// prime's 2N / 64 stages in turn and finishes the tile's rows.
+// kSplit = true, for grids far too small to fill the card: one block a (tile,
+// prime), the P blocks of a tile one thread-block cluster (grid.x = P x
+// coefficient tiles, cluster (P, 1, 1), rank = prime).  Each streams only
+// its prime's stages and keeps its residues in its own shared memory; after
+// a cluster barrier each finishes a P-th of the tile's rows, reading the
+// other primes' residues from their blocks' shared memory, and a second
+// barrier keeps every block resident until no other block reads it.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBlocks2)
 br_inverse_crt_kernel(const int8_t* __restrict__ X,
                       const int8_t* __restrict__ inv, Shape s, RnsConsts c,
@@ -295,18 +310,24 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
   using Ring = sm90::Ring<kBN2, kStages2>;
   extern __shared__ __align__(1024) uint8_t smem[];
   __shared__ Prime32 sp[kMaxPrimes];
+  const int n_ys = kSplit ? 1 : c.count;  // [n_ys][128][32] residues
   uint16_t* ys = reinterpret_cast<uint16_t*>(smem + Ring::kBytes);
   long long* accs = reinterpret_cast<long long*>(
-      smem + Ring::kBytes + c.count * kRowsA * kCols2 * 2);  // [128][32]
+      smem + Ring::kBytes + n_ys * kRowsA * kCols2 * 2);  // [128][32]
   uint64_t* bars = reinterpret_cast<uint64_t*>(accs + kRowsA * kCols2);
   Ring ring{smem, bars, bars + kStages2};
-  const int ct = blockIdx.x;
+  const int k0 = kSplit ? blockIdx.x % c.count : 0;  // the first prime
+  const int ct = kSplit ? blockIdx.x / c.count : blockIdx.x;
   const int rt = blockIdx.y;
   const int n0 = ct * kCols2;
   const int n_kb = 2 * s.N / kBK;
   const long long x_prime = (long long)s.rows2 * 2 * s.N;
   const long long inv_prime = 4LL * s.N * s.N;
   const int mrows = s.B * s.J;
+  // The tile's rows this block finishes: [r_lo, r_hi) of its valid rows.
+  const int valid = min(kRowsA, mrows - rt * kRowsA);
+  const int r_lo = kSplit ? k0 * valid / c.count : 0;
+  const int r_hi = kSplit ? (k0 + 1) * valid / c.count : valid;
 
   if (threadIdx.x < c.count) sp[threadIdx.x] = c.pr[threadIdx.x];
   if (threadIdx.x == 0) {
@@ -317,33 +338,36 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
 
   if (threadIdx.x >= kConsumers) {  // producer warp
     if ((threadIdx.x & 31) == 0)
-      ring.produce(c.count * n_kb,
+      ring.produce(n_ys * n_kb,
                    [&](int i, const int8_t*& a, const int8_t*& b) {
-                     const int k = i / n_kb, kb = i % n_kb;
+                     const int k = k0 + i / n_kb, kb = i % n_kb;
                      a = X + k * x_prime +
                          ((long long)kb * s.rows2 + rt * kRowsA) * kBK;
                      b = inv + k * inv_prime +
                          ((long long)kb * 2 * s.N + ct * kBN2) * kBK;
                    });
+    if constexpr (kSplit) {  // its part in both cluster barriers below
+      sm90::cluster_sync();
+      sm90::cluster_sync();
+    }
     return;
   }
 
   // This block's accumulator words land in shared memory during the
   // products.
-  for (int i = threadIdx.x; i < kRowsA * kCols2 / 2; i += kConsumers) {
-    const int r = i / (kCols2 / 2), cc = (i % (kCols2 / 2)) * 2;
-    if (rt * kRowsA + r < mrows)
-      sm90::cp_async16(accs + r * kCols2 + cc,
-                       acc + (long long)(rt * kRowsA + r) * s.N + n0 + cc);
+  for (int i = threadIdx.x; i < (r_hi - r_lo) * kCols2 / 2; i += kConsumers) {
+    const int r = r_lo + i / (kCols2 / 2), cc = (i % (kCols2 / 2)) * 2;
+    sm90::cp_async16(accs + r * kCols2 + cc,
+                     acc + (long long)(rt * kRowsA + r) * s.N + n0 + cc);
   }
   sm90::cp_async_commit();
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   int d[kBN2 / 2];
-  ring.consume(c.count * n_kb, n_kb, d, [&](int k) {
-    const Prime32 q = sp[k];
-    uint16_t* yk = ys + k * kRowsA * kCols2;
+  ring.consume(n_ys * n_kb, n_kb, d, [&](int t) {
+    const Prime32 q = sp[k0 + t];
+    uint16_t* yk = ys + t * kRowsA * kCols2;
 #pragma unroll
     for (int n8 = 0; n8 < kCols2 / 8; ++n8)
 #pragma unroll
@@ -358,26 +382,32 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
       }
   });
   sm90::cp_async_wait_all();
-  sm90::consumers_sync();
+  if constexpr (kSplit)
+    sm90::cluster_sync();  // every prime's residues in its block
+  else
+    sm90::consumers_sync();
 
   // Explicit CRT: x = sum_k y_k (M/p_k) - alpha M, alpha from 2^-40 fixed
-  // point; thread -> coefficient t % kCols2, rows t / kCols2 + step * i.
+  // point; thread -> coefficient t % kCols2, rows r_lo + t / kCols2 + step i.
   constexpr int kRowStep = kConsumers / kCols2;
   const int col = threadIdx.x % kCols2;
   const int n = n0 + col;
   const int a_lo = kmajor_col(n, s.rows1), a_hi = kmajor_col(s.N + n, s.rows1);
 #pragma unroll 4
-  for (int i = 0; i < kRowsA / kRowStep; ++i) {
-    const int r = threadIdx.x / kCols2 + kRowStep * i;
+  for (int r = r_lo + threadIdx.x / kCols2; r < r_hi; r += kRowStep) {
     const int m2 = rt * kRowsA + r;
-    if (m2 >= mrows) continue;
-    const unsigned long long x = crt_word(
-        c, [&](int k) { return ys[(k * kRowsA + r) * kCols2 + col]; });
+    const uint16_t* y = ys + r * kCols2 + col;
+    unsigned long long x;
+    if constexpr (kSplit)
+      x = crt_word(c, [&](int k) { return sm90::ld_cluster_u16(y, k); });
+    else
+      x = crt_word(c, [&](int k) { return y[k * kRowsA * kCols2]; });
     const unsigned long long v =
         (static_cast<unsigned long long>(accs[r * kCols2 + col]) + x) & c.qmask;
     acc[(long long)m2 * s.N + n] = static_cast<long long>(v);
     if (A != nullptr) decompose_store(v, m2, a_lo, a_hi, s, A);
   }
+  if constexpr (kSplit) sm90::cluster_sync();  // none leaves while read
 }
 
 using ForwardKernel = void (*)(const int8_t*, const int8_t*, const int8_t*,
@@ -404,6 +434,8 @@ using namespace tfhe;
 // as K2's B operand ([64 rows a 32-coefficient tile][2N], k-major tiles).
 // Scratch, zero-filled by the caller: A [rows1][dn] and X [P][rows2][2N],
 // k-major tiles (rows1, rows2 as in Shape), each below 2^31 bytes.
+// k2_cluster: 1 runs K2 a block a tile, n_primes a cluster of one block a
+// prime a tile (ops/cuda_blind_rotate.py k2_cluster decides).
 // Returns a cudaError_t (0 = ok).
 extern "C" int tfhe_blind_rotate(
     long long* acc, const int32_t* tilde, int tstride, const int8_t* bsk,
@@ -411,10 +443,12 @@ extern "C" int tfhe_blind_rotate(
     int8_t* A, int8_t* X, int B, int n_steps, int kp1, int N, int lev,
     int blog, int q, const int* primes, const unsigned* barrett_m,
     const unsigned* barrett_off, const unsigned long long* mk,
-    const long long* fp, int n_primes, unsigned long long m, void* stream) {
+    const long long* fp, int n_primes, unsigned long long m, int k2_cluster,
+    void* stream) {
   const int R = kp1 * lev;
   if (n_primes < 1 || n_primes > kMaxPrimes || R > 32 || N % 64 != 0 ||
-      kp1 < 2 || kp1 > 5 || blog > 12 || B < 1)
+      kp1 < 2 || kp1 > 5 || blog > 12 || B < 1 ||
+      (k2_cluster != 1 && k2_cluster != n_primes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RnsConsts c =
@@ -440,13 +474,29 @@ extern "C" int tfhe_blind_rotate(
   const ForwardKernel k1 = forward_kernel(kp1);
   const size_t smem1 = sm90::Ring<kBN1, kStages1>::kBytes +
                        (size_t)R * 2 * kp1 * kCols1 + 2 * kStages1 * 8;
+  using InverseKernel = void (*)(const int8_t*, const int8_t*, Shape,
+                                 RnsConsts, long long*, int8_t*);
+  const bool split = k2_cluster > 1;
+  const InverseKernel k2 = split ? br_inverse_crt_kernel<true>
+                                 : br_inverse_crt_kernel<false>;
   const size_t smem2 = sm90::Ring<kBN2, kStages2>::kBytes +
-                       (size_t)n_primes * kRowsA * kCols2 * 2 +
+                       (size_t)(split ? 1 : n_primes) * kRowsA * kCols2 * 2 +
                        (size_t)kRowsA * kCols2 * 8 + 2 * kStages2 * 8;
   TFHE_CHECK(raise_smem_limit((const void*)k1, smem1));
-  TFHE_CHECK(raise_smem_limit((const void*)br_inverse_crt_kernel, smem2));
+  TFHE_CHECK(raise_smem_limit((const void*)k2, smem2));
   const dim3 grid1(s.PN / kCols1, s.rows1 / kRowsA);
-  const dim3 grid2(N / kCols2, s.rows2 / kRowsA);
+  cudaLaunchAttribute cluster{};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = k2_cluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg2{};
+  cfg2.gridDim = dim3(k2_cluster * (N / kCols2), s.rows2 / kRowsA);
+  cfg2.blockDim = dim3(kThreads);
+  cfg2.dynamicSmemBytes = smem2;
+  cfg2.stream = st;
+  cfg2.attrs = &cluster;
+  cfg2.numAttrs = split ? 1 : 0;
 
   const long long words = (long long)B * kp1 * N;
   br_decompose_kernel<<<(unsigned)((words + 255) / 256), 256, 0, st>>>(acc, s,
@@ -456,9 +506,8 @@ extern "C" int tfhe_blind_rotate(
     k1<<<grid1, kThreads, smem1, st>>>(A, fwd_tiles, bsk, rot, tilde, tstride,
                                        step, s, c, X);
     TFHE_CHECK(cudaGetLastError());
-    br_inverse_crt_kernel<<<grid2, kThreads, smem2, st>>>(
-        X, inv_tiles, s, c, acc, step + 1 < n_steps ? A : nullptr);
-    TFHE_CHECK(cudaGetLastError());
+    TFHE_CHECK(cudaLaunchKernelEx(&cfg2, k2, X, inv_tiles, s, c, acc,
+                                  step + 1 < n_steps ? A : nullptr));
   }
   return 0;
 }

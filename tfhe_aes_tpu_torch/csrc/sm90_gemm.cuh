@@ -110,6 +110,28 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
+// Thread-block clusters.  A barrier of every thread of the cluster that has
+// not exited (release / acquire: shared-memory writes before it are seen by
+// loads after it in every block of the cluster).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// The 16-bit word at this block's shared-memory address p, read from the
+// shared memory of the cluster's block `rank` (distributed shared memory).
+__device__ __forceinline__ uint16_t ld_cluster_u16(const void* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  uint16_t v;
+  asm volatile("ld.shared::cluster.u16 %0, [%1];\n"
+               : "=h"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
 // wgmma shared-memory descriptor, no swizzle: start address, leading (K)
 // byte offset 128, stride (M/N) byte offset 8 * kBK, all in 16-byte units.
 __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {

@@ -6,12 +6,16 @@ steps on PyTorch's current stream, two launches a step; this wrapper does
 the setup and the final rescale in torch, lays the NTT matrices out in the
 k-major tile order the kernel's bulk copies read (``kmajor_tiles``, once
 per key set: ``cuda_build.derived``), allocates the two scratch operands,
-and counts its launches in ``blind_rotate_cuda.launches``.
+picks K2's launch (``k2_cluster``), and counts its calls in
+``blind_rotate_cuda.launches`` and those whose K2 ran split in
+``k2_split.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import types
 
 import torch
 
@@ -26,6 +30,12 @@ BK = 64            # K bytes of one tile stage (csrc/sm90_gemm.cuh kBK)
 TILE_ROWS = 128    # rows of an A stage (two warpgroups)
 K1_COLS = 64       # residue columns of a forward tile (kCols1)
 K2_COLS = 32       # output coefficients of an inverse tile (kCols2)
+K2_BLOCKS_PER_SM = 2  # K2 blocks an SM holds at once (kBlocks2)
+K2_SPLIT_SHARE = 3    # split K2 below 1 / this of what the card holds
+
+# The rotate calls whose K2 ran split: a counter of graphs.kernel_counters,
+# to which a replay adds what its graph holds, as to the launches.
+k2_split = types.SimpleNamespace(launches=0)
 
 
 def _lib():
@@ -33,7 +43,7 @@ def _lib():
     fn = lib.tfhe_blind_rotate
     fn.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P, _I, ctypes.c_uint64, _P]
+                   _P, _P, _P, _P, _P, _I, ctypes.c_uint64, _I, _P]
     fn.restype = _I
     return fn
 
@@ -90,6 +100,27 @@ def scratch_rows(params: ParamSet, n_bits: int) -> tuple[int, int]:
     return rows1, rows2
 
 
+def k2_cluster(params: ParamSet, n_bits: int, n_primes: int,
+               sm_count: int) -> int:
+    """The blocks K2 spreads a tile's primes over: n_primes, a thread-block
+    cluster a tile and one prime a block, while its grid of (N / 32) x
+    (rows2 / 128) tiles is under a third of the blocks the card holds at
+    once (K2_BLOCKS_PER_SM an SM); else 1, each block streaming all primes
+    in turn.  A third: on the H100 (132 SMs, 264 blocks) at N = 512 and
+    5 primes the split K2 took 0.79-0.82x the time at 80 tiles (128 bits)
+    and 1.03-1.14x at 96 and 128 (144 and 192 bits), its 5-fold grid then
+    queueing on the SMs."""
+    _, rows2 = scratch_rows(params, n_bits)
+    tiles = params.polynomial_size // K2_COLS * (rows2 // TILE_ROWS)
+    split = K2_SPLIT_SHARE * tiles < K2_BLOCKS_PER_SM * sm_count
+    return n_primes if split else 1
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def forward_sum_bound(params: ParamSet) -> int:
     """The largest |lo + 256 hi| of K1's forward product, which the kernel
     reduces in one 32-bit step: dn digit limbs (|limb| <= 32 for wide
@@ -144,16 +175,24 @@ def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
     rot = rot_table.contiguous()
     a_buf = torch.zeros(rows1 * dn, dtype=torch.int8, device=dev)
     x_buf = torch.zeros(pcount * rows2 * 2 * n, dtype=torch.int8, device=dev)
+    cluster = k2_cluster(params, B, pcount, _sm_count(dev.index))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(acc.data_ptr(), tilde.data_ptr(), tilde.shape[1],
                 bsk.data_ptr(), fwd.data_ptr(), inv.data_ptr(),
                 rot.data_ptr(), a_buf.data_ptr(), x_buf.data_ptr(),
                 B, params.lwe_dimension, kp1, n, lev, blog, q,
-                *cuda_build.prime_args(plan), stream)
-    blind_rotate_cuda.launches += 1
+                *cuda_build.prime_args(plan), cluster, stream)
+    count_call(cluster)
     cuda_build.check(rc, "blind-rotate kernel")
     return rotate_finish(acc, q)
+
+
+def count_call(cluster: int) -> None:
+    """One rotate call's counts: its own, and the split one if its K2 ran
+    as clusters."""
+    blind_rotate_cuda.launches += 1
+    k2_split.launches += int(cluster > 1)
 
 
 blind_rotate_cuda.launches = 0

@@ -397,9 +397,12 @@ def report() -> dict:
     ns, device), ``device_spans`` (decoded from them: a span whose stamp
     is lost has None for it, and ``lost`` says why),
     ``marks_logged`` (the logged marks a card ran: as many MARK_KERNEL
-    records as a profile of the same window holds), ``counters`` and
-    ``layers`` (by host and device span name: count, seconds, self
-    seconds).  Reads the rings of the cards with logged marks."""
+    records as a profile of the same window holds), ``counters`` (units,
+    WoPBS runs by shape, mark launches, and the rotate calls and those of
+    them whose K2 ran split) and ``layers`` (by host and device span name:
+    count, seconds, self seconds).  Reads the rings of the cards with
+    logged marks."""
+    from ..ops import cuda_blind_rotate
     with _lock:
         host = [dict(s) for s in _spans]
         log = list(_log)
@@ -421,7 +424,9 @@ def report() -> dict:
             "units": units,
             "wopbs": [{"bytes": s[0], "luts": s[1], "bits": s[2], "runs": n}
                       for s, n in sorted(wopbs.items())],
-            "mark_launches": mark_cuda.launches},
+            "mark_launches": mark_cuda.launches,
+            "rotate_calls": cuda_blind_rotate.blind_rotate_cuda.launches,
+            "rotate_split_calls": cuda_blind_rotate.k2_split.launches},
         "layers": {
             "host": _layers(host, lambda s: s["parent"]
                             if s["parent"] in by_id else None),
