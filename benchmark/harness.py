@@ -9,15 +9,18 @@ number, or None where the trace holds nothing for it).
 
 The program under test is the port's client (device key generation from
 the benchmark's secret keys) and server facade (``Server.
-aes_key_expansion``, ``Server.ctr_keystream``), behind ``Port``.  A
-request's answer is fetched to the host, as a server returns it; the
-window ends when the request that was running at ``seconds`` completes.
+aes_key_expansion``, ``Server.ctr_keystream``), behind ``Port``; a
+configuration with a "mesh" runs the port's multi-rank path on one
+process a card instead, behind ``ranks.MeshPort``.  A request's answer is
+fetched to the host, as a server returns it; the window ends when the
+request that was running at ``seconds`` completes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import pathlib
@@ -220,11 +223,18 @@ class _Run:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
-             device="cuda", t0: float | None = None, program=Port,
+             device="cuda", t0: float | None = None, program=None,
              override: dict | None = None, log=None) -> dict:
-    """One run: the result line's object, its checks last."""
+    """One run: the result line's object, its checks last.  program:
+    Port, or ranks.MeshPort where the configuration has a "mesh" (the
+    tests' stand-ins take its place)."""
     t0 = time.perf_counter() if t0 is None else t0
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
+    if "mesh" in cell.config:
+        from . import ranks
+        program = functools.partial(program or ranks.MeshPort, cell=cell,
+                                    seed=seed, trace=trace)
+    program = program or Port
     log(f"# harness loaded at {time.perf_counter() - t0:.3f} s")
     run = _Run(cell, seed, program, device, override, log)
     port, traffic = run.port, run.traffic
@@ -278,6 +288,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
         f"a request median {statistics.median(per_req):.4f} s, max "
         f"{max(per_req):.4f} s; {drawn:.4f} s drawing sessions left out")
 
+    # What the other ranks of a mesh report (ranks.MeshPort.collect).
+    others = port.collect() if "mesh" in cell.config else {}
     peak = port.memory_peak()
     for rks, key in run.kept:
         run.judge.schedule(port.fetch(rks), key)
@@ -285,6 +297,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     run.bulk = None
     port.close()
     checks, failed = run.judge.verdict()
+    checks.update(others.get("checks", {}))
     failed = failed[1:]     # the window's: the warm request's is first
 
     values = {"blocks_per_min": blocks / span * 60.0,
@@ -296,14 +309,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     dev = _device_record(port, cell, peak)
     if trace:
         work = _traced_work(cell, traced)
-        tr = reduce.from_profile(events, work, run.keyexp_s)
+        tr = reduce.from_profile(events, work, run.keyexp_s,
+                                 others.get("call_s", []))
         _log_records(log, tr, counted, work)
         metrics = {}
         for m in cell.per_layer:
             value = metric_reader(cell, m["name"])(tr)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-        dev.update(busy_s=tr.busy_s(), window_s=tr.window_s)
+        # Averaged over the ranks where others traced their request too.
+        busy = [(tr.busy_s(), tr.window_s)] + others.get("traced", [])
+        dev.update(busy_s=statistics.fmean(b for b, _ in busy),
+                   window_s=statistics.fmean(w for _, w in busy))
         result.update(metrics=metrics, device=dev,
                       breakdown=reduce.breakdown(tr))
     else:
@@ -338,11 +355,14 @@ def _stop(prof, port, before: dict):
 
 
 def _traced_work(cell: Cell, traced: list) -> dict:
+    """The traced requests' work on this process's card: its 'dp' share
+    of each batch on a mesh."""
+    share = cell.config.get("mesh", {}).get("dp", 1)
     wopbs = []
     for req in traced:
         if cell.traffic["key_per_session"]:
             wopbs += rooflines.key_expansion_wopbs()
-        wopbs += rooflines.ctr_step_wopbs(req.blocks)
+        wopbs += rooflines.ctr_step_wopbs(req.blocks // share)
     return rooflines.work(cell.config["params"], wopbs)
 
 

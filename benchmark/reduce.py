@@ -8,6 +8,7 @@ one's completion; a device second is busy when some record covers it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import re
 import statistics
@@ -24,12 +25,18 @@ class Trace:
     ops: device records (name, start s, end s) inside the window; spans:
     the harness's (phase, start s, end s); work: rooflines.work of the
     traced requests; keyexp_s: the host seconds of each session's key
-    schedule over the whole traced run (a device fence after it)."""
+    schedule over the whole traced run (a device fence after it);
+    rank_call_s: on a mesh, each rank's device seconds of each of the
+    window's CTR calls (CUDA events around it), rank 0's first; launched:
+    the count of every device record of the profile by name, those the
+    window's edges cut off too (None: ops are all the records)."""
     ops: list
     spans: list
     window: tuple
     work: dict
     keyexp_s: list
+    rank_call_s: list = dataclasses.field(default_factory=list)
+    launched: dict | None = None
 
     @property
     def window_s(self) -> float:
@@ -55,7 +62,14 @@ class Trace:
                    if kernels is None or any(k in name for k in kernels))
 
     def count(self, kernel: str) -> int:
-        return sum(kernel in name for name, _, _ in self.ops)
+        """The profile's records whose name holds `kernel`, those that the
+        window's edges cut off too: the device's clock, as the profile
+        maps it onto the host's, can put the last records of the traced
+        span a few milliseconds past the host's end of it."""
+        launched = self.launched
+        if launched is None:
+            launched = collections.Counter(name for name, _, _ in self.ops)
+        return sum(n for name, n in launched.items() if kernel in name)
 
     def gaps(self) -> list:
         """The idle gaps, each (what the host was doing, seconds): the
@@ -87,7 +101,8 @@ def short_name(name: str) -> str:
     return name[:cut][:120]
 
 
-def from_profile(events, work: dict, keyexp_s: list) -> Trace:
+def from_profile(events, work: dict, keyexp_s: list,
+                 rank_call_s=()) -> Trace:
     """A Trace from the profile's events of the traced span, each (name,
     on the device, start s, end s).  A device record named as a harness
     span is the span's mirror on the device's timeline, not work."""
@@ -102,10 +117,12 @@ def from_profile(events, work: dict, keyexp_s: list) -> Trace:
     if not requests:
         raise RuntimeError("the profile holds no traced request")
     window = (min(s[1] for s in requests), max(s[2] for s in requests))
+    launched = collections.Counter(name for name, _, _ in ops)
     ops = [(name, max(start, window[0]), min(end, window[1]))
            for name, start, end in ops
            if end > window[0] and start < window[1]]
-    return Trace(ops, spans, window, work, keyexp_s)
+    return Trace(ops, spans, window, work, keyexp_s, list(rank_call_s),
+                 dict(launched))
 
 
 def breakdown(trace: Trace) -> dict:
@@ -162,3 +179,27 @@ def idle_share(trace: Trace):
 
 def median_keyexp_s(trace: Trace):
     return statistics.median(trace.keyexp_s) if trace.keyexp_s else None
+
+
+def collective_share(trace: Trace, span: str):
+    """% of the traced device time in NCCL records (a name holding
+    "nccl"), None where the trace holds none or no harness span `span`:
+    the collectives that span launches, where no other code of the traced
+    request launches one."""
+    total = trace.seconds()
+    nccl = sum(end - start for name, start, end in trace.ops
+               if "nccl" in name.lower())
+    if total <= 0 or nccl <= 0 \
+            or not any(s[0] == span for s in trace.spans):
+        return None
+    return 100.0 * nccl / total
+
+
+def rank_skew(trace: Trace):
+    """% by which the slowest rank's median CTR call outlasts the
+    fastest's, over the window's calls; None with under two ranks or
+    without device records (a CPU run's calls are host seconds)."""
+    medians = [statistics.median(s) for s in trace.rank_call_s if s]
+    if not trace.ops or len(medians) < 2:
+        return None
+    return 100.0 * (max(medians) - min(medians)) / min(medians)

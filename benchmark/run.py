@@ -10,7 +10,10 @@ with --trace 1 its per-layer ones), ``device``, with --trace 1
 ``breakdown``, and last ``checks``, each number the reference compared
 beside its limit.  Everything else goes to stderr, whose last lines are
 those checks.  Without the cards, or with a JAX module loaded once the
-window has closed, it exits non-zero and prints no result.
+window has closed, it exits non-zero and prints no result.  A cell whose
+configuration has a "mesh" runs one process a card (benchmark/ranks.py):
+this one is rank 0, and a rank that fails or loads JAX ends the run the
+same way.
 """
 
 from __future__ import annotations
@@ -25,10 +28,14 @@ import sys  # noqa: E402
 
 
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    # One write a line: a mesh cell's ranks log from threads too.
+    sys.stderr.write(msg + "\n")
+    sys.stderr.flush()
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: str = "cuda") -> int:
+    """device: "cpu" skips the look for cards and runs on the CPU, for
+    the tests only."""
     ap = argparse.ArgumentParser(prog="python -m benchmark.run")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -40,18 +47,19 @@ def main(argv=None) -> int:
     from benchmark import harness
 
     cell = harness.load_cell(args.workload)
-    if (not torch.cuda.is_available()
-            or torch.cuda.device_count() < cell.chips):
+    if device == "cuda" and (not torch.cuda.is_available()
+                             or torch.cuda.device_count() < cell.chips):
         log(f"{cell.name} needs {cell.chips} CUDA device(s); "
             f"{torch.cuda.device_count()} available")
         return 2
     log(f"# {cell.name}: seed {args.seed}, {args.seconds} s, trace "
         f"{args.trace}")
     result = harness.run_cell(cell, args.seed, args.seconds,
-                              bool(args.trace), device="cuda", t0=T0,
+                              bool(args.trace), device=device, t0=T0,
                               log=log)
-    card = harness.card()
-    log(f"# on {card['name']}, power limit {card['power_limit']}")
+    if device == "cuda":
+        card = harness.card()
+        log(f"# on {card['name']}, power limit {card['power_limit']}")
     leaked = harness.forbidden_modules()
     if leaked:
         log(f"the run loaded {', '.join(leaked)}: no result")

@@ -123,6 +123,20 @@ def test_metric_readers_read_nothing_from_an_empty_trace():
         assert harness.metric_reader(cell, m["name"])(empty) is None
 
 
+def test_a_trace_counts_the_records_its_window_cuts_off():
+    # The device's clock, mapped onto the host's, put a request's last
+    # mark and copy past the host's end of the request on the card.
+    events = [("bench:request", False, 1.0, 2.0),
+              ("tfhe_mark", True, 1.1, 1.1001),
+              ("tfhe_mark", True, 1.9995, 2.0003),
+              ("tfhe_mark", True, 2.0004, 2.0005),
+              ("Memcpy DtoH (Device -> Pageable)", True, 2.0006, 2.0016)]
+    tr = reduce.from_profile(events, {}, [])
+    assert tr.count("tfhe_mark") == 3
+    assert [op[0] for op in tr.ops] == ["tfhe_mark"] * 2
+    assert tr.window == (1.0, 2.0) and max(op[2] for op in tr.ops) == 2.0
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
 def test_configs_agree_with_the_port(config):
     from tfhe_aes_tpu_torch import params as port_params
