@@ -2,14 +2,23 @@
 .json) and draws, from the run's seed, everything the program is given.
 
 A traffic file holds:
-  blocks_per_request  keystream blocks a request;
+  blocks_per_request  AES blocks a request;
   key_per_session     false: one session whose key schedule runs in
-                      set-up, then keystream requests at consecutive
-                      counter offsets; true: a request is a session, a
-                      fresh encrypted key and IV, its key schedule, then
-                      its keystream at offset 0;
-  rcon                "trivial": the schedule's RCON as noiseless
-                      encodings;
+                      set-up, then requests on it; true: a request is a
+                      session, a fresh encrypted key and IV, its key
+                      schedule, then its blocks;
+  rcon                the key schedule's RCON: "trivial", noiseless
+                      encodings (the port's staged schedule); "pk", the
+                      server encrypts RCON itself under the client's
+                      public key every session (the reference's own
+                      schedule, a WoPBS a word);
+  op                  what a request runs (absent: "ctr"): "ctr", the
+                      keystream of its blocks at consecutive counter
+                      offsets (offset 0 in a session); "decrypt", the
+                      inverse cipher of its blocks, AES-128 ciphertexts of
+                      plaintexts drawn from the seed under the session's
+                      key, handed to the program as noiseless encodings
+                      (made before the request's clock starts);
   sessions            the sessions drawn at a time: once in set-up, and
                       again whenever the window has used them all (the
                       harness leaves that drawing out of the window);
@@ -18,9 +27,10 @@ A traffic file holds:
   trace_requests      the requests a traced run profiles.
 
 The seed draws the binary secret keys, the seed of the program's key
-generation, each session's AES key and IV and their LWE encryptions.
-The sessions come from one stream, so a seed gives the same sessions
-however many draws they take.
+generation, each session's AES key and IV and their LWE encryptions, the
+server's randomness (pk RCON) and the plaintexts of decrypt requests, each
+from a stream of its own.  The sessions come from one stream, so a seed
+gives the same sessions however many draws they take.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ import dataclasses
 import numpy as np
 
 from .reference import aes, lwe
+
+RCON = ("trivial", "pk")
+OPS = ("ctr", "decrypt")
 
 
 @dataclasses.dataclass
@@ -43,8 +56,10 @@ class Session:
 @dataclasses.dataclass
 class Request:
     session: int             # index into Inputs.sessions
-    offset: int              # counter offset of the first block
+    offset: int              # counter offset of the first block (decrypt:
+                             # its place in the session's message)
     blocks: int
+    plain: np.ndarray | None = None   # decrypt: its plaintexts [blocks, 16]
 
 
 @dataclasses.dataclass
@@ -58,6 +73,8 @@ class Inputs:
     checked: set             # window sessions whose round keys are judged
     rng: np.random.Generator  # draws further sessions
     std: float               # their noise
+    server_rng: np.random.Generator   # the server's, for pk RCON
+    plain_rng: np.random.Generator    # draws decrypt requests' plaintexts
 
     @property
     def big_key(self) -> np.ndarray:
@@ -77,13 +94,30 @@ def _session(rng: np.random.Generator, key: np.ndarray,
     return Session(k, iv, *enc)
 
 
+def op(traffic: dict) -> str:
+    return traffic.get("op", "ctr")
+
+
+def check(traffic: dict) -> None:
+    """Raise on a traffic value the generator does not draw."""
+    if traffic["rcon"] not in RCON:
+        raise ValueError(f"unknown rcon {traffic['rcon']!r}")
+    if op(traffic) not in OPS:
+        raise ValueError(f"unknown op {op(traffic)!r}")
+
+
+def _plain(rng: np.random.Generator, n: int) -> np.ndarray:
+    return np.frombuffer(rng.bytes(16 * n), np.uint8).reshape(n, 16)
+
+
 def make_inputs(params: dict, traffic: dict, seed: int) -> Inputs:
     """Everything the seed decides, drawn on the host in a few bulk
     calls."""
-    if traffic["rcon"] != "trivial":
-        raise ValueError(f"unknown rcon {traffic['rcon']!r}")
-    keys_ss, sess_ss, gen_ss, pick_ss = np.random.SeedSequence(
-        seed % (1 << 128)).spawn(4)
+    check(traffic)
+    # Streams added later are spawned after the first four, which they
+    # leave as they were.
+    keys_ss, sess_ss, gen_ss, pick_ss, server_ss, plain_ss = \
+        np.random.SeedSequence(seed % (1 << 128)).spawn(6)
     lwe_key, glwe_key = lwe.draw_secret_keys(
         np.random.default_rng(keys_ss), params["lwe_dimension"],
         params["glwe_dimension"], params["polynomial_size"])
@@ -91,14 +125,17 @@ def make_inputs(params: dict, traffic: dict, seed: int) -> Inputs:
     rng = np.random.default_rng(sess_ss)
     warm = _session(rng, glwe_key.reshape(-1), std)
     n = traffic["blocks_per_request"]
-    warm_request = Request(0, 0, n)
+    plain_rng = np.random.default_rng(plain_ss)
+    warm_request = Request(0, 0, n, _plain(plain_rng, n)
+                           if op(traffic) == "decrypt" else None)
     n_checked = traffic["checked_schedules"]
     pool = 2 * n_checked if traffic["key_per_session"] else 1
     checked = {int(i) for i in np.random.default_rng(pick_ss).choice(
         pool, size=min(n_checked, pool), replace=False)}
     keygen_seed = int(gen_ss.generate_state(1, np.uint64)[0])
     inputs = Inputs(lwe_key, glwe_key, keygen_seed, [], warm, warm_request,
-                    checked, rng, std)
+                    checked, rng, std, np.random.default_rng(server_ss),
+                    plain_rng)
     if traffic["key_per_session"]:
         inputs.draw(max(traffic["sessions"], pool))
     else:
@@ -110,12 +147,25 @@ def requests(traffic: dict, inputs: Inputs):
     """The window's requests, one after another, for as long as asked; a
     session request may name a session not drawn yet (Inputs.draw)."""
     n = traffic["blocks_per_request"]
+    decrypt = op(traffic) == "decrypt"
     offset = inputs.warm_request.blocks
     j = 0
     while True:
+        plain = _plain(inputs.plain_rng, n) if decrypt else None
         if traffic["key_per_session"]:
-            yield Request(j, 0, n)
+            yield Request(j, 0, n, plain)
         else:
-            yield Request(0, offset, n)
+            yield Request(0, offset, n, plain)
             offset += n
         j += 1
+
+
+def ciphertexts(session: Session, req: Request) -> np.ndarray:
+    """A decrypt request's input: AES-128 of its plaintexts under the
+    session's key, public, lifted as noiseless encodings (mask 0, the body
+    a bit times 2^63) [blocks, 16, 8, k N + 1] u64, bytes most significant
+    first."""
+    cts = aes.encrypt_blocks(aes.key_expansion(session.key), req.plain)
+    out = np.zeros(cts.shape + session.enc_key.shape[1:], np.uint64)
+    out[..., -1] = aes.bits_of(cts).astype(np.uint64) << np.uint64(63)
+    return out

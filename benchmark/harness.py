@@ -5,15 +5,23 @@ Everything a cell is made of is found by name: the cell in BENCHMARK.json,
 its configuration in benchmark/configs/<config>.json, its traffic in
 benchmark/traffic/<traffic>.json (read by generator.py), each per-layer
 metric in benchmark/metrics/<metric>.py (a ``read(trace)`` that returns a
-number, or None where the trace holds nothing for it).
+number, or None where the trace holds nothing for it).  An end-to-end
+metric is one of the quantities run_cell measures (blocks_per_min,
+session_s, peak_reserved_gib, setup_s), named as it is or as
+"<quantity>.<suffix>", so that a cell can report the same quantity under
+a bound of its own.
 
 The program under test is the port's client (device key generation from
-the benchmark's secret keys) and server facade (``Server.
-aes_key_expansion``, ``Server.ctr_keystream``), behind ``Port``; a
+the benchmark's secret keys, and its public key where the traffic's
+"rcon" is "pk") and server facade (``Server.aes_key_expansion``, with
+``pk_rcon`` for "pk"; ``Server.ctr_keystream`` for a request of "op"
+"ctr", ``Server.aes_decrypt`` for "decrypt"), behind ``Port``; a
 configuration with a "mesh" runs the port's multi-rank path on one
-process a card instead, behind ``ranks.MeshPort``.  A request's answer is
-fetched to the host, as a server returns it; the window ends when the
-request that was running at ``seconds`` completes.
+process a card instead, behind ``ranks.MeshPort``, which drives trivial
+RCON and CTR alone.  A traffic value the harness does not drive is
+refused when the cell is loaded.  A request's answer is fetched to the
+host, as a server returns it; the window ends when the request that was
+running at ``seconds`` completes.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ def load_cell(workload: str, root: pathlib.Path = ROOT) -> Cell:
     here = root / "benchmark"
     config = _json(here / "configs" / f"{w['config']}.json")
     traffic = _json(here / "traffic" / f"{w['traffic']}.json")
+    refuse(config, traffic)
     e2e = [m for m in spec["end_to_end"]
            if workload in m.get("workloads", [workload])]
     moved = {m["name"] for m in e2e}
@@ -72,6 +81,20 @@ def load_cell(workload: str, root: pathlib.Path = ROOT) -> Cell:
                  if (workload in m["workloads"] if "workloads" in m
                      else m["moves"] in moved)]
     return Cell(workload, w["chips"], config, traffic, e2e, per_layer, root)
+
+
+def refuse(config: dict, traffic: dict) -> None:
+    """Raise where the harness would not drive the traffic as its file
+    says: a value the generator does not draw, or on a mesh (ranks.
+    MeshPort) anything but one session's trivial-RCON CTR stream."""
+    generator.check(traffic)
+    if "mesh" in config and (traffic["rcon"] != "trivial"
+                             or generator.op(traffic) != "ctr"
+                             or traffic["key_per_session"]):
+        raise ValueError(
+            f"a mesh runs one session's CTR keystream with trivial RCON, "
+            f"not rcon {traffic['rcon']!r}, op {generator.op(traffic)!r}, "
+            f"key_per_session {traffic['key_per_session']}")
 
 
 def metric_reader(cell: Cell, name: str):
@@ -99,10 +122,13 @@ class Port:
                                **{**config["params"], **(override or {})})
         self.device = torch.device(device)
         self.server = None
+        self.pk_rcon = False
 
     def start(self, inputs: generator.Inputs, traffic: dict, log) -> None:
         """The program's warm-up beside device key generation from the
-        benchmark's secret keys, as a deployment starts."""
+        benchmark's secret keys, and for pk RCON the client's public key,
+        which the server holds with randomness of its own, as a deployment
+        starts."""
         from tfhe_aes_tpu_torch.backend.numpy_backend import SecretKeys
         from tfhe_aes_tpu_torch.client.client import Client
         from tfhe_aes_tpu_torch.server import Server
@@ -113,20 +139,26 @@ class Port:
         client = Client(self.params, seed=inputs.keygen_seed)
         client.sk = SecretKeys(self.params, inputs.lwe_key, inputs.glwe_key)
         dkeys = client.make_device_keys(device=self.device)
+        self.pk_rcon = traffic["rcon"] == "pk"
+        self.server = (Server(dkeys, client.make_public_key(),
+                              inputs.server_rng)
+                       if self.pk_rcon else Server(dkeys))
         self.fence()
         t_keys = time.perf_counter() - t0
         report = warm.join()
         log(f"# keys on the device in {t_keys:.3f} s; warm-up {report}")
-        self.server = Server(dkeys)
 
     def upload(self, cts: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(cts.view(np.int64)).to(self.device)
 
     def key_expansion(self, enc_key: torch.Tensor) -> torch.Tensor:
-        return self.server.aes_key_expansion(enc_key)
+        return self.server.aes_key_expansion(enc_key, pk_rcon=self.pk_rcon)
 
     def keystream(self, rks, enc_iv, blocks: int, offset: int):
         return self.server.ctr_keystream(rks, enc_iv, blocks, offset)
+
+    def decrypt(self, rks, blocks: torch.Tensor) -> torch.Tensor:
+        return self.server.aes_decrypt(rks, blocks)
 
     def fetch(self, t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy().view(np.uint64)
@@ -172,6 +204,7 @@ class _Run:
     def __init__(self, cell, seed, program, device, override, log):
         self.traffic = cell.traffic
         self.per_session = self.traffic["key_per_session"]
+        self.decrypt = generator.op(self.traffic) == "decrypt"
         t0 = time.perf_counter()
         self.inputs = generator.make_inputs(cell.config["params"],
                                             self.traffic, seed)
@@ -190,9 +223,11 @@ class _Run:
             yield
 
     def _schedule(self, session: generator.Session):
+        """(enc_iv on the device, None for decrypt; round keys)."""
         with self.span("upload"):
             enc_key = self.port.upload(session.enc_key)
-            enc_iv = self.port.upload(session.enc_iv)
+            enc_iv = None if self.decrypt else \
+                self.port.upload(session.enc_iv)
         t0 = time.perf_counter()
         with self.span("keyexp"):
             rks = self.port.key_expansion(enc_key)
@@ -201,9 +236,16 @@ class _Run:
                 self.keyexp_s.append(time.perf_counter() - t0)
         return enc_iv, rks
 
+    def lift(self, req: generator.Request,
+             session: generator.Session) -> np.ndarray | None:
+        """A decrypt request's ciphertexts, made before its clock starts."""
+        return generator.ciphertexts(session, req) if self.decrypt else None
+
     def request(self, req: generator.Request, session: generator.Session,
-                check_schedule: bool) -> np.ndarray:
-        """One request, its answer fetched; judged after the window."""
+                check_schedule: bool,
+                cts: np.ndarray | None = None) -> np.ndarray:
+        """One request, its answer fetched; judged after the window.  cts:
+        a decrypt request's ciphertexts (lift)."""
         with self.span("request"):
             if self.per_session:
                 enc_iv, rks = self._schedule(session)
@@ -214,11 +256,21 @@ class _Run:
                     self.bulk = self._schedule(session)
                     self.kept.append((self.bulk[1], session.key))
                 enc_iv, rks = self.bulk
-            with self.span("keystream"):
-                ks = self.port.keystream(rks, enc_iv, req.blocks, req.offset)
+            if self.decrypt:
+                with self.span("upload"):
+                    blocks = self.port.upload(cts)
+                with self.span("decrypt"):
+                    ans = self.port.decrypt(rks, blocks)
+            else:
+                with self.span("keystream"):
+                    ans = self.port.keystream(rks, enc_iv, req.blocks,
+                                              req.offset)
             with self.span("fetch"):
-                out = self.port.fetch(ks)
-        self.judge.keystream(out, session.key, session.iv, req.offset)
+                out = self.port.fetch(ans)
+        if self.decrypt:
+            self.judge.decrypt(out, req.plain)
+        else:
+            self.judge.keystream(out, session.key, session.iv, req.offset)
         return out
 
 
@@ -244,7 +296,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     # Set-up ends with the cell's one request shape run once.
     ta = time.perf_counter()
     req = run.inputs.warm_request
-    run.request(req, run.inputs.warm, check_schedule=run.per_session)
+    run.request(req, run.inputs.warm, check_schedule=run.per_session,
+                cts=run.lift(req, run.inputs.warm))
     log(f"# warm-up request ({req.blocks} blocks): "
         f"{time.perf_counter() - ta:.3f} s")
     port.fence()
@@ -257,6 +310,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     prof, events, traced = None, None, []
     times = []
     drawn = 0.0     # seconds of the window spent drawing further sessions
+                    # and decrypt requests' ciphertexts
     for j, req in enumerate(generator.requests(traffic, run.inputs)):
         if j and time.perf_counter() - t_start - drawn >= seconds:
             break
@@ -264,13 +318,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
             td = time.perf_counter()
             run.inputs.draw(traffic["sessions"])
             drawn += time.perf_counter() - td
+        session = run.inputs.sessions[req.session]
+        cts = None
+        if run.decrypt:
+            td = time.perf_counter()
+            cts = run.lift(req, session)
+            drawn += time.perf_counter() - td
         if j == 0 and n_traced:
             prof = torch.profiler.profile(activities=_activities(port))
             prof.__enter__()
             before = port.counters()
         ta = time.perf_counter()
-        run.request(req, run.inputs.sessions[req.session],
-                    check_schedule=req.session in run.inputs.checked)
+        run.request(req, session,
+                    check_schedule=req.session in run.inputs.checked, cts=cts)
         tb = time.perf_counter()
         times.append((req, ta, tb))
         if prof is not None and j < n_traced:
@@ -286,7 +346,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     per_req = [tb - ta for _, ta, tb in times]
     log(f"# window: {len(times)} requests, {blocks} blocks in {span:.4f} s; "
         f"a request median {statistics.median(per_req):.4f} s, max "
-        f"{max(per_req):.4f} s; {drawn:.4f} s drawing sessions left out")
+        f"{max(per_req):.4f} s; {drawn:.4f} s drawing inputs left out")
 
     # What the other ranks of a mesh report (ranks.MeshPort.collect).
     others = port.collect() if "mesh" in cell.config else {}
@@ -326,10 +386,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     else:
         metrics = {}
         for m in cell.end_to_end:
-            if values.get(m["name"]) is None:
+            # "<quantity>.<suffix>" reads <quantity>: a cell whose spread
+            # wants a bound of its own names a metric of its own.
+            value = values.get(m["name"].split(".")[0])
+            if value is None:
                 raise ValueError(f"{cell.name} does not report {m['name']}")
-            metrics[m["name"]] = {"value": values[m["name"]],
-                                  "unit": m["unit"]}
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         result.update(metrics=metrics, device=dev)
     result["checks"] = checks
     return result
@@ -358,11 +420,14 @@ def _traced_work(cell: Cell, traced: list) -> dict:
     """The traced requests' work on this process's card: its 'dp' share
     of each batch on a mesh."""
     share = cell.config.get("mesh", {}).get("dp", 1)
+    step = (rooflines.decrypt_wopbs
+            if generator.op(cell.traffic) == "decrypt"
+            else rooflines.ctr_step_wopbs)
     wopbs = []
     for req in traced:
         if cell.traffic["key_per_session"]:
-            wopbs += rooflines.key_expansion_wopbs()
-        wopbs += rooflines.ctr_step_wopbs(req.blocks // share)
+            wopbs += rooflines.key_expansion_wopbs(cell.traffic["rcon"])
+        wopbs += step(req.blocks // share)
     return rooflines.work(cell.config["params"], wopbs)
 
 

@@ -1,4 +1,5 @@
-"""Plain AES-128 (FIPS-197) and its CTR keystream, in numpy.
+"""Plain AES-128 (FIPS-197), its inverse cipher and its CTR keystream, in
+numpy.
 
 Written from the standard alone: the S-box is the multiplicative inverse
 in GF(2^8) followed by the affine map, the state is column-major (byte i
@@ -42,8 +43,13 @@ def _sbox() -> np.ndarray:
 SBOX = _sbox()
 MUL2 = np.array([_gmul(x, 2) for x in range(256)], np.uint8)
 MUL3 = np.array([_gmul(x, 3) for x in range(256)], np.uint8)
-# ShiftRows: new byte (r, c) is old byte (r, c + r mod 4).
+INV_SBOX = np.argsort(SBOX).astype(np.uint8)
+MUL9, MUL11, MUL13, MUL14 = (np.array([_gmul(x, m) for x in range(256)],
+                                      np.uint8) for m in (9, 11, 13, 14))
+# ShiftRows: new byte (r, c) is old byte (r, c + r mod 4); InvShiftRows
+# undoes it.
 SHIFT = np.array([(i % 4) + 4 * ((i // 4 + i % 4) % 4) for i in range(16)])
+INV_SHIFT = np.argsort(SHIFT)
 
 
 def to_bytes(x: int) -> np.ndarray:
@@ -81,6 +87,27 @@ def encrypt_blocks(round_keys: np.ndarray, blocks: np.ndarray) -> np.ndarray:
         if rnd < 10:
             st = _mix_columns(st)
         st = st ^ round_keys[rnd]
+    return st
+
+
+def _inv_mix_columns(st: np.ndarray) -> np.ndarray:
+    cols = st.reshape(-1, 4, 4)                 # [n, column, row]
+    a0, a1, a2, a3 = (cols[..., r] for r in range(4))
+    out = np.stack([MUL14[a0] ^ MUL11[a1] ^ MUL13[a2] ^ MUL9[a3],
+                    MUL9[a0] ^ MUL14[a1] ^ MUL11[a2] ^ MUL13[a3],
+                    MUL13[a0] ^ MUL9[a1] ^ MUL14[a2] ^ MUL11[a3],
+                    MUL11[a0] ^ MUL13[a1] ^ MUL9[a2] ^ MUL14[a3]], axis=-1)
+    return out.reshape(-1, 16)
+
+
+def decrypt_blocks(round_keys: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    """The inverse cipher (FIPS-197 5.3) of blocks [n, 16] uint8 under
+    round_keys [11, 16]."""
+    st = blocks ^ round_keys[10]
+    for rnd in range(9, -1, -1):
+        st = INV_SBOX[st[:, INV_SHIFT]] ^ round_keys[rnd]
+        if rnd:
+            st = _inv_mix_columns(st)
     return st
 
 

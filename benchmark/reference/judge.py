@@ -1,12 +1,15 @@
 """The comparison that decides a run's `correct`.
 
-Every keystream block a run's window produced, and the round keys of the
-sessions it checks, are decrypted with the benchmark's own secret key and
-compared with plain AES.  Two numbers, each beside its limit:
+Every block a run's window answered (a keystream block, or the inverse
+cipher of a ciphertext block), and the round keys of the sessions it
+checks, are decrypted with the benchmark's own secret key and compared with
+plain AES: the keystream with AES-CTR of the session's key and IV, an
+inverse cipher's answer with the plaintext the ciphertext was made from.
+Two numbers, each beside its limit:
 
   wrong_bits   bits that decrypt to another value than AES gives: limit 0,
                an exact comparison;
-  noise_share  the root mean square of the keystream bits' phase errors
+  noise_share  the root mean square of the answer bits' phase errors
                over the largest standard deviation at which a bit still
                decrypts wrong with at most the configuration's p_fail
                (2^62 / z, erfc(z / sqrt 2) = p_fail): limit 1, the
@@ -47,26 +50,33 @@ class Judge:
     def __init__(self, key: np.ndarray, p_fail: float):
         self.key = key
         self.p_fail = p_fail
-        self.keystreams = []      # (ciphertexts, key, iv, offset)
+        # (ciphertexts, a function giving the bytes they should decrypt
+        # to), in the order of the requests
+        self.answers = []
         self.round_keys = []      # (ciphertexts, key)
 
     def keystream(self, cts: np.ndarray, key: int, iv: int,
                   offset: int) -> None:
         """A request's answer: cts [n, 16, 8, k N + 1] u64, block t being
         AES(key, iv + offset + t), bytes most significant first."""
-        self.keystreams.append((cts, key, iv, offset))
+        self.answers.append((cts, lambda: aes.ctr_keystream(
+            key, iv, offset, cts.shape[0])))
+
+    def decrypt(self, cts: np.ndarray, plain: np.ndarray) -> None:
+        """A request's answer: cts [n, 16, 8, k N + 1] u64, block t being
+        plain[t] [16] uint8, bytes most significant first."""
+        self.answers.append((cts, lambda: plain))
 
     def schedule(self, cts: np.ndarray, key: int) -> None:
         """A session's round keys: cts [11, 16, 8, k N + 1] u64."""
         self.round_keys.append((cts, key))
 
     def verdict(self) -> tuple[dict, list[bool]]:
-        """({number: {"value", "limit"}}, whether each keystream answer
-        was wrong in any bit)."""
+        """({number: {"value", "limit"}}, whether each answer was wrong in
+        any bit)."""
         wrong_total, sq, count, failed = 0, 0.0, 0, []
-        for cts, key, iv, offset in self.keystreams:
-            want = aes.bits_of(aes.ctr_keystream(key, iv, offset,
-                                                 cts.shape[0]))
+        for cts, expected in self.answers:
+            want = aes.bits_of(expected())
             wrong, err = lwe.decrypt(self.key, cts, want)
             wrong_total += wrong
             failed.append(wrong > 0)

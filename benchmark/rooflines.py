@@ -77,11 +77,25 @@ def ctr_step_wopbs(blocks: int) -> list[tuple[int, int, int]]:
             + [(16 * blocks, 24, 8)] * 9 + [(16 * blocks, 8, 8)])
 
 
-def key_expansion_wopbs() -> list[tuple[int, int, int]]:
-    """The homomorphic key schedule with trivial RCON: the S-box of
-    RotWord's 4 bytes (a program may pad it to a round's shape: its padding
-    is not work the inputs need), then 10 rounds of 16 bytes with the
-    {identity, S-box} stack (16 LUTs)."""
+def decrypt_wopbs(blocks: int) -> list[tuple[int, int, int]]:
+    """The inverse cipher of `blocks` blocks: 9 rounds of the inverse S-box
+    (8 LUTs), then, past the round key, the {x9, x11, x13, x14} stack of
+    InvMixColumns (32), and the last round's inverse S-box, over 16 bytes
+    a block."""
+    return ([(16 * blocks, 8, 8), (16 * blocks, 32, 8)] * 9
+            + [(16 * blocks, 8, 8)])
+
+
+def key_expansion_wopbs(rcon: str = "trivial") -> list[tuple[int, int, int]]:
+    """The homomorphic key schedule.  Trivial RCON: the S-box of RotWord's
+    4 bytes (a program may pad it to a round's shape: its padding is not
+    work the inputs need), then 10 rounds of 16 bytes with the {identity,
+    S-box} stack (16 LUTs).  RCON encrypted under the public key ("pk"),
+    the reference's schedule: a round the S-box of RotWord's 4 bytes, then
+    the identity of the new words' bytes, the last word's 4 after the
+    other 12 (fresh RCON would put it over the noise budget)."""
+    if rcon == "pk":
+        return [(4, 8, 8), (12, 8, 8), (4, 8, 8)] * 10
     return [(4, 8, 8)] + [(16, 16, 8)] * 10
 
 

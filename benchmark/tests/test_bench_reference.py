@@ -1,5 +1,6 @@
-"""The plain reference: AES-128 against FIPS-197 and SP 800-38A, the LWE
-round trip, and the comparison that decides `correct`."""
+"""The plain reference: AES-128 and its inverse cipher against FIPS-197
+and SP 800-38A, the LWE round trip, and the comparison that decides
+`correct`."""
 
 from __future__ import annotations
 
@@ -20,6 +21,25 @@ def test_fips197_appendix_c1_encrypt():
     pt = aes.to_bytes(0x00112233445566778899AABBCCDDEEFF)[None]
     assert hexes(aes.encrypt_blocks(rk, pt)) == [
         "69c4e0d86a7b0430d8cdb78070b4c55a"]
+
+
+def test_fips197_appendix_c1_decrypt():
+    rk = aes.key_expansion(0x000102030405060708090A0B0C0D0E0F)
+    ct = aes.to_bytes(0x69C4E0D86A7B0430D8CDB78070B4C55A)[None]
+    assert hexes(aes.decrypt_blocks(rk, ct)) == [
+        "00112233445566778899aabbccddeeff"]
+
+
+def test_decrypt_inverts_encrypt_on_random_blocks_and_keys():
+    rng = np.random.default_rng(20)
+    blocks = rng.integers(0, 256, size=(1000, 16), dtype=np.uint8)
+    for i, key in enumerate(int.from_bytes(rng.bytes(16), "big")
+                            for _ in range(1000)):
+        rk = aes.key_expansion(key)
+        pt = blocks[i:i + 1]
+        ct = aes.encrypt_blocks(rk, pt)
+        assert (aes.decrypt_blocks(rk, ct) == pt).all(), key
+        assert not (ct == pt).all()
 
 
 def test_fips197_appendix_a1_key_expansion():
@@ -108,6 +128,28 @@ def test_judge_passes_right_answers_and_fails_a_flipped_bit():
         j.schedule(bad_rks, k)
         checks, _ = j.verdict()
         assert checks["wrong_bits"]["value"] == 1 and not judge.passed(checks)
+
+
+def test_judge_compares_inverse_cipher_answers_with_their_plaintexts():
+    rng = np.random.default_rng(4)
+    key = rng.integers(0, 2, size=128, dtype=np.uint64)
+    plain = rng.integers(0, 256, size=(3, 16), dtype=np.uint8)
+    right = lwe.encrypt_bits(key, aes.bits_of(plain), 2.0 ** -20, rng)
+    ks = lwe.encrypt_bits(key, aes.bits_of(aes.ctr_keystream(7, 9, 0, 1)),
+                          2.0 ** -20, rng)
+    j = judge.Judge(key, 2.0 ** -64)
+    j.decrypt(right, plain)
+    j.keystream(ks, 7, 9, 0)
+    checks, failed = j.verdict()
+    assert judge.passed(checks) and failed == [False, False]
+    assert 0 < checks["noise_share"]["value"] < 1e-4
+    j = judge.Judge(key, 2.0 ** -64)
+    j.keystream(ks, 7, 9, 0)
+    j.decrypt(right[[1, 0, 2]], plain)
+    checks, failed = j.verdict()
+    assert failed == [False, True] and not judge.passed(checks)
+    assert checks["wrong_bits"]["value"] == int(np.sum(
+        aes.bits_of(plain[0]) != aes.bits_of(plain[1])) * 2)
 
 
 def test_judge_fails_noise_past_the_budget_and_no_answer():

@@ -90,6 +90,24 @@ def test_ctr_work_is_the_circuits_own(blocks):
     assert collections.Counter(rooflines.ctr_step_wopbs(blocks)) == want
 
 
+@pytest.mark.parametrize("blocks", [1, 4, 16])
+def test_decrypt_work_is_the_circuits_own(blocks):
+    from tfhe_aes_tpu_torch.models import fhe_aes
+    assert collections.Counter(rooflines.decrypt_wopbs(blocks)) == \
+        fhe_aes._decrypt_wopbs(blocks)
+
+
+@pytest.mark.parametrize("rcon", ["trivial", "pk"])
+def test_key_schedule_work_is_the_circuits_own(rcon):
+    import torch
+    from tfhe_aes_tpu_torch.models import fhe_aes
+    want = fhe_aes._key_expansion_wopbs(torch.zeros(10, 8, 1), rcon == "pk")
+    got = rooflines.key_expansion_wopbs(rcon)
+    assert collections.Counter(got) == want
+    # The reference's schedule: 4 S-boxes and 16 refreshes a round.
+    assert sum(b for b, _, _ in got) == (200 if rcon == "pk" else 164)
+
+
 def test_work_counts_launches():
     p = CONFIGS["param_tpu"]
     w = rooflines.work(p, rooflines.ctr_step_wopbs(16)

@@ -1,6 +1,7 @@
 """A throwaway checkout for the CPU tests: the benchmark's files, plus
-toy configurations (one on a mesh of two ranks) and toy traffic added as
-files alone, and a BENCHMARK.json that names them.  The toy sets have no
+toy configurations (one on a mesh of two ranks) and toy traffic (the
+public-key RCON schedule and the inverse cipher among it) added as files
+alone, and a BENCHMARK.json that names them.  The toy sets have no
 security and are never a cell of the benchmark."""
 
 from __future__ import annotations
@@ -49,26 +50,40 @@ TRAFFIC = {
                     "checked_schedules": 1, "trace_requests": 1},
     "toy_bulk2": {"blocks_per_request": 2, "key_per_session": False,
                   "rcon": "trivial", "sessions": 1, "checked_schedules": 1,
-                  "trace_requests": 1}}
+                  "trace_requests": 1},
+    "toy_pk_session": {"blocks_per_request": 1, "key_per_session": True,
+                       "rcon": "pk", "sessions": 2, "checked_schedules": 1,
+                       "trace_requests": 1},
+    "toy_decrypt": {"blocks_per_request": 2, "key_per_session": False,
+                    "rcon": "trivial", "op": "decrypt", "sessions": 1,
+                    "checked_schedules": 1, "trace_requests": 1}}
 
 CELLS = {"toy-bulk": ("toy", "toy_bulk", 1),
          "toy-bulk4": ("toy", "toy_bulk4", 1),
          "toy-session": ("toy", "toy_session", 1),
-         "toy-mesh": ("toy_mesh", "toy_bulk2", 2)}
+         "toy-mesh": ("toy_mesh", "toy_bulk2", 2),
+         "toy-pk-session": ("toy", "toy_pk_session", 1),
+         "toy-decrypt": ("toy", "toy_decrypt", 1)}
 
 
-def toy_cells(spec: dict, workload: str) -> list:
+def toy_cells(root: pathlib.Path, spec: dict, workload: str) -> list:
     """The toy cells that stand for a cell of the benchmark, by what its
-    files hold: a configuration with a mesh the toy mesh, traffic with a
-    key a session the toy sessions, other traffic the toy bulk cells."""
+    files under root hold: a configuration with a mesh the toy mesh;
+    traffic of the inverse cipher the toy decrypt cell, with a key a
+    session and public-key RCON the toy pk sessions, with a key a session
+    the toy sessions, other traffic the toy bulk cells."""
     w = next(w for w in spec["workloads"] if w["name"] == workload)
     config = next(c for c in spec["configs"] if c["name"] == w["config"])
-    if "mesh" in json.loads((harness.ROOT / config["file"]).read_text()):
+    if "mesh" in json.loads((root / config["file"]).read_text()):
         return ["toy-mesh"]
-    traffic = json.loads((harness.ROOT / "benchmark" / "traffic" /
+    traffic = json.loads((root / "benchmark" / "traffic" /
                           f"{w['traffic']}.json").read_text())
-    return ["toy-session"] if traffic["key_per_session"] \
-        else ["toy-bulk", "toy-bulk4"]
+    if traffic.get("op", "ctr") == "decrypt":
+        return ["toy-decrypt"]
+    if traffic["key_per_session"]:
+        return ["toy-pk-session"] if traffic["rcon"] == "pk" \
+            else ["toy-session"]
+    return ["toy-bulk", "toy-bulk4"]
 
 
 def checkout(tmp: pathlib.Path, spec: dict | None = None) -> pathlib.Path:
@@ -90,7 +105,8 @@ def checkout(tmp: pathlib.Path, spec: dict | None = None) -> pathlib.Path:
             json.dumps(traffic))
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
-            toys = [t for w in m["workloads"] for t in toy_cells(spec, w)]
+            toys = [t for w in m["workloads"]
+                    for t in toy_cells(root, spec, w)]
             m["workloads"] = list(dict.fromkeys(toys))
     spec["workloads"] = [{"name": c, "config": cfg, "traffic": t,
                           "chips": chips, "why": "test"}
