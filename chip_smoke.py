@@ -13,9 +13,14 @@ the script exits non-zero:
      PARAM_OPT (the CLI's default set, 25 rows) at the batches of its
      4-block CTR on both of K2's paths (one block a tile; a cluster of one
      block a prime, which cuda_blind_rotate.k2_cluster picks for batches
-     of up to 128 bits on the H100), each timed beside its bound; then
-     torch._int_mm on one step's product shapes as a yardstick of the
-     int8 product rate;
+     of up to 128 bits on the H100), each timed beside its bound; then on
+     both of K1's paths (one block a tile; the persistent K1, which
+     cuda_blind_rotate.k1_persistent picks from 4 tiles an SM) at PARAM_OPT
+     8, 16, 32, 128, 144, 512, 2048 and 4096 bits and PARAM_TPU 8192 bits
+     (where its slice does not fit, one block a tile only), each path's words
+     against the plain version (its first 16 rows above 512 bits) and the
+     other path's, timed; then torch._int_mm on one step's product shapes
+     as a yardstick of the int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
      circuit bootstrap: two cbs_level=1 toy sets (k+1 = 3; k+1 = 5 at a
      batch that fills neither a digit tile's group of 25 accumulators nor
@@ -146,7 +151,7 @@ PEAK_BYTES = 3.35e12
 
 KEY = 0x2B7E151628AED2A6ABF7158809CF4F3C
 IV = 0x00112233445566778899AABBCCDDEEFF
-KERNELS = ("blind_rotate", "vertical_packing")
+KERNELS = ("blind_rotate", "blind_rotate_k1", "vertical_packing")
 CACHE_SEED = 1          # the seed of phase 4's keys and phase 6's CLI runs
 CLI_BLOCKS = 2          # phase 6's CTR run
 BENCH_BLOCKS = 64       # phase 7: the PARAM_TPU batch
@@ -425,10 +430,12 @@ def _ctr_phase(dev, wrappers) -> dict:
     """Phase 7: PARAM_TPU at 64 blocks with 4 blocks decrypted back, then
     PARAM_OPT at 4 blocks verified on the card, each batch timed on its
     second call (a replay); keys by device keygen beside the warm-up,
-    saved to the seed-0 key cache the later phases load.  Returns the
+    saved to the seed-0 key cache the later phases load; PARAM_OPT's
+    rotate calls run K1 persistently, PARAM_TPU's none.  Returns the
     launch counts of each run, by path."""
     import torch
     from tfhe_aes_tpu_torch import cli
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate
     from tfhe_aes_tpu_torch.params import PARAM_OPT, PARAM_TPU
     from tfhe_aes_tpu_torch.server import Server
     from tfhe_aes_tpu_torch.utils import profiling, torus, warmup
@@ -439,6 +446,7 @@ def _ctr_phase(dev, wrappers) -> dict:
     paths = {}
     for params, blocks, decrypt, on_card in runs:
         _reset_launches(wrappers)
+        persistent0 = cuda_blind_rotate.k1_persistent.launches
         t0 = time.perf_counter()
         warm = warmup.precompile(params, blocks, device=dev)
         client, keys = cli.client_and_keys(params, 0, dev, True)
@@ -465,13 +473,20 @@ def _ctr_phase(dev, wrappers) -> dict:
                                          f"round-trip block {i} wrong")
         path = f"ctr {params.name} (phase 7)"
         paths[path] = _read_launches(wrappers, path)
+        # PARAM_OPT's rounds (512 bits) run K1 persistently; PARAM_TPU's
+        # slice does not fit, so none of its rotates do.
+        persistent = cuda_blind_rotate.k1_persistent.launches - persistent0
+        if (persistent > 0) != (params is PARAM_OPT):
+            raise AssertionError(f"phase 7: {params.name}: {persistent} "
+                                 f"rotate calls ran K1 persistently")
         print(f"phase 7: {params.name} {blocks} blocks {ctr_s:.2f} s = "
               f"{blocks / ctr_s * 60:.3f} blocks/min (warm, a graph "
               f"replay), every block verified on the "
               f"{'card' if on_card else 'host'}"
               f"{f', {decrypt} decrypted back' if decrypt else ''}; "
               f"warm-up {report}; whole run "
-              f"{time.perf_counter() - t0:.1f} s; launches {paths[path]}")
+              f"{time.perf_counter() - t0:.1f} s; launches {paths[path]}, "
+              f"{persistent} of the rotate calls with K1 persistent")
         del server, keys, rks, ks
     return paths
 
@@ -1047,6 +1062,7 @@ def _eager_wopbs():
 ROTATE_NODES = ("br_forward_mac_kernel", "br_inverse_crt_kernel")
 ROTATE_ONCE = "br_decompose_kernel"
 ROTATE_SPLIT = "br_inverse_crt_kernelILb1E"    # K2 as clusters, mangled
+ROTATE_PERSISTENT = "br_forward_mac_kernel_persistent"   # K1 persistent
 VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
             "vp_inverse_crt_kernel")
 
@@ -1054,23 +1070,25 @@ VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
 def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     """The kernel nodes of a captured graph, by kernel, against what its
     replays add to the launch counts (graph.held: rotate and VP calls,
-    device marks, rotate calls whose K2 ran split): a call of the rotate is
-    one decomposition and n (the LWE dimension) steps of K1 and K2 (the
-    split instance of K2 in a split call), a call of VP one of each of its
-    three kernels a rotated selector bit (min(nbits, log2 N) a call:
+    device marks, rotate calls whose K2 ran split, rotate calls whose K1
+    ran persistently): a call of the rotate is one decomposition and n (the
+    LWE dimension) steps of K1 and K2 (the split instance of K2 in a split
+    call, the persistent K1 in a persistent one), a call of VP one of each
+    of its three kernels a rotated selector bit (min(nbits, log2 N) a call:
     vp_bits in all), a mark one node, as many as the labels the capture
     recorded."""
     from tfhe_aes_tpu_torch.ops import graphs
     from tfhe_aes_tpu_torch.utils import profiling
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
-    rot, _, marks, split = graph.held
+    rot, _, marks, split, persistent = graph.held
     if marks != len(graph.marks):
         raise AssertionError(f"{what}: the graph counts {marks} marks, its "
                              f"capture recorded {len(graph.marks)}")
     want = {ROTATE_ONCE: rot,
             **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
             ROTATE_SPLIT: split * p.lwe_dimension,
+            ROTATE_PERSISTENT: persistent * p.lwe_dimension,
             **{k: vp_bits for k in VP_NODES},
             profiling.MARK_KERNEL: marks}
     got = {k: sum(n for name, n in nodes.items() if k in name)
@@ -1581,7 +1599,14 @@ def main() -> int:
     # of its key expansion (4-byte SubWord, 16-byte rounds).  Each batch
     # on both of K2's paths (cuda_blind_rotate.k2_cluster forced: one block
     # a tile, or a cluster of one block a prime), each path's median of 3
-    # beside the one the rule takes.
+    # beside the one the rule takes.  Then both of K1's paths (forced
+    # through cuda_blind_rotate.K1_TILES_PER_SM: one block a tile, or the
+    # persistent K1) at 8 to 4096 bits (a session's ripple add, 16 bits,
+    # a session's SubWord and key schedule rounds, the bulk
+    # ripple add, a 4-block round, bulk16's rounds, the noise study's
+    # batch), K2 as the rule takes it: the words
+    # of both against the plain version (on the first NOISE_PLAIN_ROWS
+    # rows above 512 bits, and each path's against the other's on all).
     t0 = time.perf_counter()
     cl_opt = Client(PARAM_OPT, seed=0)
     k_opt = cl_opt.make_device_keys(fast=True, device=dev)
@@ -1622,7 +1647,64 @@ def main() -> int:
               f"{path_ms['unsplit']:.1f} ms, split {path_ms['split']:.1f} "
               f"ms (the rule: {taken}), plain {plain_ms:.1f} ms, bound "
               f"{bound:.2f} ms ({bound_by})")
-    del got, want, small, test, k_opt, cl_opt
+    edge = cuda_blind_rotate.K1_TILES_PER_SM
+    for params_k1, keys_k1, cl_k1, batches_k1 in (
+            (PARAM_OPT, k_opt, cl_opt,
+             (8, 16, 32, 128, 144, 512, 2048, 4096)),
+            (PARAM_TPU, keys, client, (aes_bits,))):
+        primes = keys_k1.rplan.n_primes
+        for n_batch in batches_k1:
+            small, test = rotate_inputs(params_k1, n_batch,
+                                        cl_k1.sk.lwe_key)
+            rows = n_batch if n_batch <= 512 else NOISE_PLAIN_ROWS
+            br_args = (keys_k1.rplan, params_k1, keys_k1.bsk_limbs)
+            want, plain_ms = _timed(blind_rotate.blind_rotate_plain,
+                                    *br_args, small[:rows], test,
+                                    keys_k1.rfwd_limbs,
+                                    keys_k1.rinv_crt_limbs,
+                                    keys_k1.rot_table)
+            path_ms, words = {}, {}
+            try:
+                for path in ("tiled", "persistent"):
+                    cuda_blind_rotate.K1_TILES_PER_SM = (
+                        0 if path == "persistent" else 1 << 30)
+                    if path == "persistent" and not \
+                            cuda_blind_rotate.k1_persistent(
+                                params_k1, n_batch, primes, sms):
+                        continue            # its resident slice does not fit
+                    words[path], path_ms[path] = _median_ms(
+                        cuda_blind_rotate.blind_rotate_cuda, *br_args, small,
+                        test, keys_k1.fwd_full, keys_k1.inv_crt_full,
+                        keys_k1.rot_table)
+                    br_err = max(br_err, _require_equal(
+                        words[path][:rows], want,
+                        f"blind rotate {params_k1.name} B={n_batch} K1 "
+                        f"{path}"))
+            finally:
+                cuda_blind_rotate.K1_TILES_PER_SM = edge
+            if len(words) == 2:
+                _require_equal(words["persistent"], words["tiled"],
+                               f"blind rotate {params_k1.name} B={n_batch}: "
+                               f"the two K1 paths")
+            taken = "persistent" if cuda_blind_rotate.k1_persistent(
+                params_k1, n_batch, primes, sms) else "tiled"
+            bound, bound_by = rotate_bound(params_k1, keys_k1.rplan, n_batch)
+            br_shapes.append({"shape": f"{params_k1.name} {n_batch} bits, "
+                                       f"K1 paths",
+                              "ms": path_ms[taken], "plain_ms": plain_ms,
+                              "plain_rows": rows, "bound_ms": bound,
+                              "k1": taken, **{f"{k}_ms": v for k, v in
+                                              path_ms.items()}})
+            shown = ", ".join(f"{k} {v:.1f} ms" for k, v in path_ms.items())
+            if len(words) < 2:
+                shown += " (no persistent K1: its slice does not fit)"
+            print(f"phase 1: blind rotate {params_k1.name} kernel == plain at "
+                  f"B={n_batch} on both K1 paths (the plain version on "
+                  f"{rows} rows, the paths against each other on all): "
+                  f"{shown} "
+                  f"(the rule: {taken}), plain {plain_ms:.1f} ms, bound "
+                  f"{bound:.2f} ms ({bound_by})")
+    del got, want, small, test, k_opt, cl_opt, words
 
     # Yardstick of the int8 product rate: torch._int_mm on one PARAM_TPU
     # step's product shapes at the timed batch (the port never calls it

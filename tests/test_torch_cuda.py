@@ -72,39 +72,69 @@ def _last_split_batch(params, n_primes, sm_count) -> int:
     return n
 
 
+def _last_tiled_batch(params, n_primes, sm_count) -> int:
+    """The largest batch whose K1 runs one block a tile on this card."""
+    n = 1
+    while not cuda_blind_rotate.k1_persistent(params, n + 1, n_primes,
+                                              sm_count):
+        n += 1
+    return n
+
+
+def _persistent_calls(params, runs: dict, n_primes, sm_count) -> int:
+    """The rotate calls of WoPBS runs {(bytes, luts, bits): count} (one a
+    cbs level, bytes x bits LWE bits each) whose K1 runs persistently."""
+    return sum(count * params.cbs_level * cuda_blind_rotate.k1_persistent(
+        params, n_bytes * bits, n_primes, sm_count)
+        for (n_bytes, _, bits), count in runs.items())
+
+
 def _rotate_matches_plain(dev, params, k, client, n_batch):
     """The kernel's words equal the plain version's, and the call counts as
-    split iff k2_cluster says so."""
+    split iff k2_cluster says so, as persistent iff k1_persistent does."""
     small, test = _rotate_inputs(client, n_batch)
     args = (k.rplan, params, k.bsk_limbs, torus.from_u64(small, dev),
             torus.from_u64(test, dev))
     want = blind_rotate.blind_rotate_plain(*args, k.rfwd_limbs,
                                            k.rinv_crt_limbs, k.rot_table)
-    before = cuda_blind_rotate.k2_split.launches
+    before = (cuda_blind_rotate.k2_split.launches,
+              cuda_blind_rotate.k1_persistent.launches)
     got = cuda_blind_rotate.blind_rotate_cuda(*args, k.fwd_full,
                                               k.inv_crt_full, k.rot_table)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     split = cuda_blind_rotate.k2_cluster(params, n_batch, k.rplan.n_primes,
                                          _sm_count(dev)) > 1
-    assert cuda_blind_rotate.k2_split.launches - before == int(split)
+    persistent = cuda_blind_rotate.k1_persistent(
+        params, n_batch, k.rplan.n_primes, _sm_count(dev))
+    assert cuda_blind_rotate.k2_split.launches - before[0] == int(split)
+    assert cuda_blind_rotate.k1_persistent.launches - before[1] == \
+        int(persistent)
     return split
 
 
 @pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_L5, PARAM_TOY_WIDE,
                                     PARAM_TOY_R25], ids=lambda p: p.name)
-@pytest.mark.parametrize("n_batch", [1, 9, 128, "last split", "first unsplit"])
+@pytest.mark.parametrize("n_batch", [1, 9, 128, "last split", "first unsplit",
+                                     "last non-persistent",
+                                     "first persistent"])
 def test_blind_rotate_kernel_matches_plain(dev, params, n_batch):
     """Both K2 paths: the small batches and the largest batch of the
     card's rule run split (a cluster of one block a prime a tile), the
-    next batch one block a tile."""
+    next batch one block a tile.  Both K1 paths: the largest batch of one
+    block a tile and the next, K1 persistent (k1_persistent)."""
     client, k = _keys(params, 11, dev)
-    if isinstance(n_batch, str):
-        last = _last_split_batch(params, k.rplan.n_primes, _sm_count(dev))
+    sms, primes = _sm_count(dev), k.rplan.n_primes
+    if n_batch in ("last split", "first unsplit"):
+        last = _last_split_batch(params, primes, sms)
         n_batch = last if n_batch == "last split" else last + 1
+    elif isinstance(n_batch, str):
+        last = _last_tiled_batch(params, primes, sms)
+        n_batch = last if n_batch == "last non-persistent" else last + 1
+        assert cuda_blind_rotate.k1_persistent(params, n_batch, primes,
+                                               sms) == (n_batch > last)
     split = _rotate_matches_plain(dev, params, k, client, n_batch)
-    assert split == (n_batch <= _last_split_batch(
-        params, k.rplan.n_primes, _sm_count(dev)))
+    assert split == (n_batch <= _last_split_batch(params, primes, sms))
 
 
 def test_blind_rotate_kernel_matches_plain_at_param_opt_split(dev):
@@ -115,6 +145,24 @@ def test_blind_rotate_kernel_matches_plain_at_param_opt_split(dev):
     client = Client(PARAM_OPT, seed=0)
     k = client.make_device_keys(fast=True, device=dev)
     assert _rotate_matches_plain(dev, PARAM_OPT, k, client, 9)
+
+
+@pytest.mark.parametrize("set_name,n_batch", [("PARAM_OPT", 512),
+                                              ("PARAM_TPU", 1024)])
+def test_blind_rotate_kernel_matches_plain_at_bulk_batches(dev, set_name,
+                                                           n_batch):
+    """A bulk batch on device keys from seed 0: PARAM_OPT at 512 bits (a
+    4-block CTR round) runs K1 persistently; PARAM_TPU at 1024 bits (its
+    two-limb digits make a 128 KB forward slice, which leaves no room for
+    the ring) one block a tile."""
+    from tfhe_aes_tpu_torch import params as param_sets
+    params = getattr(param_sets, set_name)
+    client = Client(params, seed=0)
+    k = client.make_device_keys(fast=True, device=dev)
+    persistent = cuda_blind_rotate.k1_persistent(
+        params, n_batch, k.rplan.n_primes, _sm_count(dev))
+    assert persistent == (set_name == "PARAM_OPT")
+    assert not _rotate_matches_plain(dev, params, k, client, n_batch)
 
 
 _VP_TABLES = {                      # LUT stacks of the AES circuits
@@ -209,9 +257,10 @@ def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     report = warm.join()
     assert {"tiles", "zero_key_wopbs", "nvcc_blind_rotate",
-            "nvcc_vertical_packing", "nvcc_marks"} <= set(report), report
-    assert set(cuda_build._libs) == {"blind_rotate", "vertical_packing",
-                                     "marks"}
+            "nvcc_blind_rotate_k1", "nvcc_vertical_packing",
+            "nvcc_marks"} <= set(report), report
+    assert set(cuda_build._libs) == {"blind_rotate", "blind_rotate_k1",
+                                     "vertical_packing", "marks"}
 
     built = []
 
@@ -252,9 +301,13 @@ def test_graphed_wopbs_equals_eager_and_replays_count(dev, params):
     wrappers = graphs.kernel_counters()
     first = wopbs.many_wopbs_jit(k, runs[0], lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
-    # A toy rotate's K2 runs split (clusters of one block a prime).
+    # A toy rotate's K2 runs split (clusters of one block a prime), its K1
+    # (24 bits: 30 tiles) one block a tile.
     assert graph.held == (params.cbs_level, int(params.cbs_level == 1),
-                          len(graph.marks), params.cbs_level)
+                          len(graph.marks), params.cbs_level,
+                          _persistent_calls(params, {(3, 1, 8): 1},
+                                            k.rplan.n_primes, _sm_count(dev)))
+    assert graph.held[4] == 0
     counts = [w.launches for w in wrappers]
     second = wopbs.many_wopbs_jit(k, runs[1], lut)
     assert [w.launches - n for w, n in zip(wrappers, counts)] == \
@@ -383,10 +436,12 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     wopbs.many_wopbs_jit(k, cts, lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
-    rot, vp, marks, split = graph.held
+    rot, vp, marks, split, persistent = graph.held
     assert split == rot                 # toy batches: K2 runs split
+    assert persistent == 0              # and K1 (16 bits) one block a tile
     n, bits = params.lwe_dimension, min(8, params.log2_poly_size)
     want = {"br_decompose_kernel": rot, "br_forward_mac_kernel": n * rot,
+            "br_forward_mac_kernel_persistent": n * persistent,
             "br_inverse_crt_kernel": n * rot,
             "br_inverse_crt_kernelILb1E": n * split,    # the split K2
             "vp_digits_kernel": bits * vp,
@@ -469,7 +524,11 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     static = key[1]
     runs = key[0].wopbs(*graph.inputs, *static[:-1])
     n_wopbs = sum(runs.values())
-    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks), n_wopbs)
+    # K2 runs split at these batches; K1 persistently from 4 tiles an SM
+    # (the rounds' 256 bits: 320 tiles, one block a tile on a 132-SM card).
+    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks), n_wopbs,
+                          _persistent_calls(PARAM_TOY_VP, runs,
+                                            k.rplan.n_primes, _sm_count(dev)))
     assert all(cap >= shape[0] for shape, cap in static[-1])  # one chunk
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
     bits = sum(c * min(s[2], PARAM_TOY_VP.log2_poly_size)
@@ -477,6 +536,7 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     n = PARAM_TOY_VP.lwe_dimension
     want_nodes = {"br_decompose_kernel": n_wopbs,
                   "br_forward_mac_kernel": n * n_wopbs,
+                  "br_forward_mac_kernel_persistent": n * graph.held[4],
                   "br_inverse_crt_kernel": n * n_wopbs,
                   "vp_digits_kernel": bits, "vp_forward_mac_kernel": bits,
                   "vp_inverse_crt_kernel": bits,

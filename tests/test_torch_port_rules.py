@@ -21,6 +21,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tfhe_aes_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
     REPO / "scripts" / "vp_card_check.py", REPO / "scripts" / "vp_stage_cut.py",
+    REPO / "scripts" / "br_stage_cut.py",
     REPO / "scripts" / "cold_start.py", REPO / "scripts" / "mesh_ab.py"]
 
 

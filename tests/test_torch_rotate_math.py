@@ -111,6 +111,135 @@ def test_k2_splits_below_a_third_of_the_h100(params, bits, primes, want):
     assert (tiles < 88) == (want > 1 or primes == 1)
 
 
+# -- K1's launch: one block a tile, or the persistent walk -------------------
+
+PARAM_WIDE_SLICE = dataclasses.replace(PARAM_TOY, name="PARAM_N2048",
+                                       polynomial_size=2048)
+PARAM_R35 = dataclasses.replace(PARAM_TOY, name="PARAM_R35",
+                                glwe_dimension=4, pbs_level=7)
+PARAM_K4 = dataclasses.replace(PARAM_TOY, name="PARAM_K4", glwe_dimension=3)
+
+
+def _k1_edge(params, primes, sms=132):
+    """(the last batch of one block a tile, the first persistent one)."""
+    b = 1
+    while not cbr.k1_persistent(params, b, primes, sms):
+        b += 1
+    return b - 1, b
+
+
+@pytest.mark.parametrize("params,bits,primes,want", [
+    (PARAM_OPT, 8, 5, False), (PARAM_OPT, 9, 5, False),    # a session's
+    (PARAM_OPT, 16, 5, False),       # 160 tiles: 1.2 an SM
+    (PARAM_OPT, 32, 5, False),       # the SubWord, 320 tiles: 2.4 an SM
+    (PARAM_OPT, 72, 5, True),        # 720 tiles: 5.5 an SM
+    (PARAM_OPT, 128, 5, True),       # key schedule, rounds: 1280 tiles
+    (PARAM_OPT, 144, 5, True),       # bulk ripple add, 1440 tiles
+    (PARAM_OPT, 2048, 5, True),      # bulk rounds, 20480 tiles
+    (PARAM_OPT, 4096, 5, True),      # the noise study's batch
+    (PARAM_TPU, 64, 5, False),       # 320 tiles, but no room for a ring
+    (PARAM_TPU, 8192, 5, False),     # a 128 KB slice leaves no ring for a tile
+    (PARAM_TOY, 9, 5, False),        # 10 column tiles
+    (PARAM_TOY, 1024, 5, True),      # 1280 tiles
+    (PARAM_WIDE_SLICE, 4096, 5, False),  # a 256 KB slice does not fit
+    (PARAM_R35, 4096, 5, False),     # 35 GGSW rows
+    (PARAM_K4, 4096, 5, False),      # k + 1 = 4: no instance
+    (PARAM_OPT, 2048, 7, False),     # 7 primes
+], ids=lambda v: getattr(v, "name", str(v)))
+def test_k1_runs_persistently_where_its_tiles_pay(params, bits, primes, want):
+    """K1 runs persistently from K1_TILES_PER_SM tiles an SM of the H100's
+    132 on, where the resident slice fits beside a ring that holds a
+    tile's A stages and one more and the kernel has an instance; below,
+    where it does not fit (a 128 KB or 256 KB slice), and for other k + 1
+    or more than 28 GGSW rows, one block a tile."""
+    assert cbr.k1_persistent(params, bits, primes, 132) == want
+    cols, row_tiles = cbr.k1_tiles(params, bits, primes)
+    kp1 = params.glwe_dimension + 1
+    fits = (cbr.k1_stages(params) > 0 and primes <= 6 and kp1 in (3, 5)
+            and kp1 * params.pbs_level <= 28)
+    assert fits == (params.name not in ("PARAM_N2048", "PARAM_R35",
+                                        "PARAM_TPU", "PARAM_K4")
+                    and primes <= 6)
+    if fits:
+        assert want == (cols * row_tiles >= cbr.K1_TILES_PER_SM * 132)
+
+
+@pytest.mark.parametrize("params", [PARAM_OPT, PARAM_TOY],
+                         ids=lambda p: p.name)
+def test_k1_edge_lies_between_two_batches(params):
+    """The last batch of one block a tile and the first persistent one lie
+    on either side of K1_TILES_PER_SM tiles an SM."""
+    last, first = _k1_edge(params, 5)
+    tiles = [np.prod(cbr.k1_tiles(params, b, 5)) for b in (last, first)]
+    edge = cbr.K1_TILES_PER_SM * 132
+    assert tiles[0] < edge <= tiles[1]
+    assert not cbr.k1_persistent(params, last, 5, 132)
+    assert cbr.k1_persistent(params, first, 5, 132)
+
+
+def test_k1_stages_fill_the_h100s_shared_memory():
+    """The A stages a warpgroup beside the resident slice: 3 of 4 k-blocks
+    (16 KB) where the slice is 64 KB (8-bit digits, dn = N = 512), of which
+    a tile holds 2; 6 of 2 k-blocks at N = 128 (dn = 128); none where the
+    slice is 128 KB (PARAM_TPU's two-limb digits: a tile holds 4, and 1
+    fits) or 256 KB.  PARAM_OPT's fills the H100's 227 KB a block to
+    within one stage a warpgroup."""
+    assert (cbr.k1_stages(PARAM_OPT), cbr.k1_stage_kb(PARAM_OPT)) == (3, 4)
+    assert (cbr.k1_stages(PARAM_TOY), cbr.k1_stage_kb(PARAM_TOY)) == (6, 2)
+    assert cbr.k1_stages(PARAM_TPU) == 0
+    assert cbr.k1_stages(PARAM_WIDE_SLICE) == 0
+    kp1, rpad = 5, 32
+    used = (512 // cbr.BK * cbr.K1_FWD_CHUNK + 2 * 2 * kp1 * rpad * cbr.K1_COLS
+            + cbr.K1_DH + 4 * cbr.K1_MAX_WALK + cbr.K1_BARRIERS
+            + 2 * 3 * 4 * cbr.K1_KB)
+    assert used <= cbr.K1_SMEM < used + 2 * 4 * cbr.K1_KB
+
+
+WALKS = {"PARAM_OPT 2048 bits": (40, 512), "PARAM_OPT 4096 bits": (40, 1024),
+         "PARAM_OPT 144 bits": (40, 36), "PARAM_OPT 128 bits": (40, 32),
+         "PARAM_TPU 8192 bits": (40, 1024), "toy, 10 column tiles": (10, 66)}
+
+
+@pytest.mark.parametrize("shape", sorted(WALKS))
+def test_walk_covers_every_tile_once_and_keeps_rows_together(shape):
+    """The walk on the H100's 132 SMs takes every (column tile, row tile)
+    exactly once; in each round the row tiles the blocks take lie within
+    16 of each other (14 at most at these shapes), so the 3-4 blocks of a
+    column tile interleave their rows instead of each running down a
+    stretch of its own; the slowest block's tiles over the mean are
+    1.0055 at 512 row tiles and more; a block changes column tile at most
+    four times."""
+    cols, row_tiles = WALKS[shape]
+    sms = 132
+    walks = cbr.k1_walk(cols, sms, row_tiles)
+    pairs = sorted(p for w in walks for p in w)
+    assert pairs == sorted((c, r) for c in range(cols)
+                           for r in range(row_tiles))
+    for m in range(cbr.walk_rounds(cols, sms, row_tiles)):
+        rows = [rt for s in range(sms)
+                for _, rt in [cbr.walk_tile(s, m, cols, sms)]
+                if rt < row_tiles]
+        assert max(rows) - min(rows) <= 16
+    slowest = max(len(w) for w in walks) / (cols * row_tiles / sms)
+    if row_tiles >= 512:
+        assert round(slowest, 4) == 1.0055
+    for w in walks:
+        changes = sum(a[0] != b[0] for a, b in zip(w, w[1:]))
+        assert changes <= 4
+
+
+def test_walk_cum_is_the_rounds_count():
+    """The closed form of a column tile's row tiles before round m equals
+    counting the blocks that stood on its arc in each earlier round."""
+    for cols, blocks in ((40, 132), (10, 3), (7, 5), (3, 132)):
+        counted = np.zeros(cols, dtype=np.int64)
+        for m in range(3 * cols + 7):
+            assert [cbr._walk_cum(c, m, cols, blocks)
+                    for c in range(cols)] == counted.tolist()
+            for s in range(blocks):
+                counted[((s * cols - m) % (cols * blocks)) // blocks] += 1
+
+
 def test_kmajor_tiles_layout():
     rows, k = 24, 192
     m = torch.arange(rows * k, dtype=torch.int32).reshape(rows, k)
@@ -138,12 +267,46 @@ def _red(x: torch.Tensor, p: int, balanced: bool) -> torch.Tensor:
         x.reshape(-1).numpy(), p, balanced)).reshape(x.shape)
 
 
+def _forward_tile(am, fwd, g, tw1, rt, ct, p, params, blocks):
+    """One K1 tile, (row tile rt, column tile ct): the product of its 128
+    digit rows with the column tile's forward slice, the residues, the MAC
+    over each bit's R rows and the twiddle; (bits, limbs delta [bits, J,
+    C]).  The persistent K1 (blocks given) takes the residues as int8 limbs
+    lo + 256 hi and sums each limb's products apart."""
+    J = params.glwe_dimension + 1
+    R, B = J * params.pbs_level, tw1.shape[0]
+    rpad = 16 if R <= 16 else 32
+    C, c0 = cbr.K1_COLS, ct * cbr.K1_COLS
+    rows = am[rt * cbr.TILE_ROWS:(rt + 1) * cbr.TILE_ROWS]
+    lo = rows @ fwd[2 * C * ct:2 * C * ct + C].T
+    hi = rows @ fwd[2 * C * ct + C:2 * C * (ct + 1)].T
+    dh = _red(lo + 256 * hi, p, True).reshape(-1, rpad, C)[:, :R]
+    bits = torch.arange(dh.shape[0]) + rt * (cbr.TILE_ROWS // rpad)
+    dh, bits = dh[bits < B], bits[bits < B]
+    gl, gh = g[:, :J, c0:c0 + C], g[:, J:, c0:c0 + C]
+    if blocks is None:
+        sl = torch.einsum("brc,rjc->bjc", dh, gl)
+        sh = torch.einsum("brc,rjc->bjc", dh, gh)
+    else:
+        h8 = (dh + 128) >> 8
+        l8 = dh - (h8 << 8)
+        assert l8.abs().max() <= 128 and h8.abs().max() <= 128
+        sl = (torch.einsum("brc,rjc->bjc", l8, gl)
+              + 256 * torch.einsum("brc,rjc->bjc", h8, gl))
+        sh = (torch.einsum("brc,rjc->bjc", l8, gh)
+              + 256 * torch.einsum("brc,rjc->bjc", h8, gh))
+    prod = _red(sl + 256 * _red(sh, p, True), p, True)
+    return bits, _red(tw1[bits, None, c0:c0 + C] * prod, p, True)
+
+
 def emulate_kernel(plan, params, bsk, lwe, test, fwd_full, inv_crt_full,
-                   rot) -> torch.Tensor:
+                   rot, blocks=None) -> torch.Tensor:
     """What csrc/blind_rotate.cu computes, with its operand layouts: the
     digits A and the limbs X as k-major tiles, the products read back from
     the tiles the bulk copies fetch, every reduction the 32-bit Barrett
-    step."""
+    step.  K1 runs one tile at a time: one block a tile (blocks None), or
+    as the persistent K1's `blocks` blocks walk cbr.k1_walk, each keeping
+    its column tile's forward slice and BSK rows while it stays there."""
     n, J = params.polynomial_size, params.glwe_dimension + 1
     lev, blog = params.pbs_level, params.pbs_base_log
     P, q = plan.n_primes, plan.q_bits
@@ -163,6 +326,11 @@ def emulate_kernel(plan, params, bsk, lwe, test, fwd_full, inv_crt_full,
     m2 = torch.arange(B * J).repeat_interleave(n)
     nn = torch.arange(n).repeat(B * J)
     row0 = (m2 // J) * rpad + (m2 % J) * lev
+    cols, row_tiles = PN // C, rows1 // cbr.TILE_ROWS
+    if blocks is None:
+        walks = [[(ct, rt)] for rt in range(row_tiles) for ct in range(cols)]
+    else:
+        walks = cbr.k1_walk(cols, blocks, row_tiles)
 
     def decompose(words):
         v = words & ((1 << q) - 1)
@@ -182,29 +350,27 @@ def emulate_kernel(plan, params, bsk, lwe, test, fwd_full, inv_crt_full,
                 A[_offset(row0 + l, nn, rows1)] = d.to(torch.int8)
 
     decompose(acc)
-    rows_x = (torch.arange(B)[:, None] * J + torch.arange(J)).reshape(-1, 1)
     for step in range(params.lwe_dimension):
-        # K1: forward product -> residues -> MAC -> twiddle -> X limbs
+        # K1: forward product -> residues -> MAC -> twiddle -> X limbs,
+        # tile by tile in each block's order
         am = _untile(A, rows1, dn)
         tw1 = rot[tilde[:, step].long()].long() - 1              # [B, PN]
         g = bsk[step].long().reshape(R, 2 * J, PN)
-        for ct in range(PN // C):
-            k, c0 = ct * C // n, ct * C
-            p = plan.primes[k]
-            lo = am @ fwd[2 * C * ct:2 * C * ct + C].T
-            hi = am @ fwd[2 * C * ct + C:2 * C * (ct + 1)].T
-            dh = _red(lo + 256 * hi, p, True)
-            dh = dh[:B * rpad].reshape(B, rpad, C)[:, :R]
-            sl = torch.einsum("brc,rjc->bjc", dh, g[:, :J, c0:c0 + C])
-            sh = torch.einsum("brc,rjc->bjc", dh, g[:, J:, c0:c0 + C])
-            prod = _red(sl + 256 * _red(sh, p, True), p, True)
-            delta = _red(tw1[:, None, c0:c0 + C] * prod, p, True)
-            h8 = (delta + 128) >> 8
-            col = (c0 - k * n) + torch.arange(C)[None, :]
-            X[k][_offset(rows_x, col, rows2)] = \
-                (delta - (h8 << 8)).reshape(B * J, C).to(torch.int8)
-            X[k][_offset(rows_x, n + col, rows2)] = \
-                h8.reshape(B * J, C).to(torch.int8)
+        done = torch.zeros(cols, row_tiles, dtype=torch.long)
+        for walk in walks:
+            for ct, rt in walk:
+                k = ct * C // n
+                bits, delta = _forward_tile(am, fwd, g, tw1, rt, ct,
+                                            plan.primes[k], params, blocks)
+                done[ct, rt] += 1
+                h8 = (delta + 128) >> 8
+                rows_x = (bits[:, None] * J + torch.arange(J)).reshape(-1, 1)
+                col = (ct * C - k * n) + torch.arange(C)[None, :]
+                X[k][_offset(rows_x, col, rows2)] = \
+                    (delta - (h8 << 8)).reshape(-1, C).to(torch.int8)
+                X[k][_offset(rows_x, n + col, rows2)] = \
+                    h8.reshape(-1, C).to(torch.int8)
+        assert torch.equal(done, torch.ones_like(done))
         # K2: per-prime inverse products -> canonical residues -> CRT
         x = torch.zeros(B * J, n, dtype=torch.long)
         afx = torch.zeros_like(x)
@@ -224,9 +390,18 @@ def emulate_kernel(plan, params, bsk, lwe, test, fwd_full, inv_crt_full,
     return blind_rotate.rotate_finish(acc.reshape(B, J, n), q)
 
 
+EMULATED_BLOCKS = 3      # blocks of the persistent K1's emulated walk
+
+
+@pytest.mark.parametrize("blocks", [None, EMULATED_BLOCKS],
+                         ids=["one block a tile", "persistent walk"])
 @pytest.mark.parametrize("params", [PARAM_TOY, PARAM_TOY_WIDE, PARAM_TOY_R25],
                          ids=lambda p: p.name)
-def test_kernel_emulation_equals_plain(params):
+def test_kernel_emulation_equals_plain(params, blocks):
+    """Both K1s: one block a tile, and the persistent K1's walk on three
+    blocks, each of which crosses at least two column tiles (keeping each
+    one's slice and BSK rows while it stays), its residues summed as int8
+    limbs."""
     steps = 6
     cut = dataclasses.replace(params, lwe_dimension=steps)
     client = Client(params, seed=11)
@@ -241,7 +416,12 @@ def test_kernel_emulation_equals_plain(params):
     test[-1] = np.uint64(1) << np.uint64(60)
     args = (k.rplan, cut, k.bsk_limbs, torus.from_u64(small),
             torus.from_u64(test))
+    if blocks is not None:
+        cols, row_tiles = cbr.k1_tiles(params, 9, k.rplan.n_primes)
+        walks = cbr.k1_walk(cols, blocks, row_tiles)
+        assert all(len({ct for ct, _ in w}) >= 2 for w in walks)
     want = blind_rotate.blind_rotate_plain(*args, k.rfwd_limbs,
                                            k.rinv_crt_limbs, k.rot_table)
-    got = emulate_kernel(*args, k.fwd_full, k.inv_crt_full, k.rot_table)
+    got = emulate_kernel(*args, k.fwd_full, k.inv_crt_full, k.rot_table,
+                         blocks)
     assert torch.equal(got, want)

@@ -229,32 +229,67 @@ def test_unit_counters_under_the_stub_capture(monkeypatch, stand_in_stages):
 
 def test_split_rotates_count_as_launches_do_under_the_stub_capture(
         monkeypatch):
-    """The rotate calls whose K2 ran split count as the launches do: the
-    warm-up call counts itself, a capture nothing, each replay what its
-    graph holds; report() shows them beside the rotate calls.  A PARAM_OPT
-    16-block request's 26 rotates on the H100's 132 SMs: the ripple add's
-    first (128 bits) splits, its 15 later (144 bits) and the rounds' ten
-    (2048 bits) do not."""
+    """The rotate calls whose K2 ran split, and those whose K1 ran
+    persistently, count as the launches do: the warm-up call counts
+    itself, a capture nothing, each replay what its graph holds; report()
+    shows them beside the rotate calls.  A PARAM_OPT 16-block request's 26
+    rotates on the H100's 132 SMs: the ripple add's first (128 bits)
+    splits, its 15 later (144 bits) and the rounds' ten (2048 bits) do
+    not; all 26 run K1 persistently (1280 tiles and more, K1_TILES_PER_SM
+    an SM from 528)."""
     from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
     from tfhe_aes_tpu_torch.params import PARAM_OPT
     monkeypatch.setattr(cbr.blind_rotate_cuda, "launches", 0)
     monkeypatch.setattr(cbr.k2_split, "launches", 0)
+    monkeypatch.setattr(cbr.k1_persistent, "launches", 0)
     cache = graphs.GraphCache(capture=StubCapture())
     bits = [128] + [144] * 15 + [2048] * 10
 
     def request(owner, x):
         for b in bits:
-            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132))
+            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132),
+                           cbr.k1_persistent(PARAM_OPT, b, 5, 132))
         return x + 1
 
     owner = ToyKeys()
     for n in (1, 2, 3):
         cache(request, owner, (torch.arange(4),))
         counters = profiling.report()["counters"]
-        assert (counters["rotate_calls"], counters["rotate_split_calls"]) \
-            == (26 * (n + 1), n + 1)
+        assert (counters["rotate_calls"], counters["rotate_split_calls"],
+                counters["rotate_persistent_calls"]) \
+            == (26 * (n + 1), n + 1, 26 * (n + 1))
     (graph,) = cache.graphs(owner).values()
-    assert graph.held == (26, 0, 0, 1)
+    assert graph.held == (26, 0, 0, 1, 26)
+
+
+def test_a_session_rotate_below_the_edge_counts_no_persistent_k1(
+        monkeypatch):
+    """A one-block session's ripple add (8 and 9 bits: 80 and 90 K1 tiles)
+    and SubWord (32 bits: 320 tiles, 2.4 an SM) run K1 one block a tile on
+    the H100, its key schedule rounds (128 bits: 1280 tiles) persistently:
+    the fifth count of a graph holds only the rounds where the first holds
+    every rotate."""
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
+    from tfhe_aes_tpu_torch.params import PARAM_OPT
+    monkeypatch.setattr(cbr.blind_rotate_cuda, "launches", 0)
+    monkeypatch.setattr(cbr.k2_split, "launches", 0)
+    monkeypatch.setattr(cbr.k1_persistent, "launches", 0)
+    cache = graphs.GraphCache(capture=StubCapture())
+    bits = [8] + [9] * 15 + [32] * 4 + [128] * 4
+
+    def request(owner, x):
+        for b in bits:
+            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132),
+                           cbr.k1_persistent(PARAM_OPT, b, 5, 132))
+        return x + 1
+
+    owner = ToyKeys()
+    cache(request, owner, (torch.arange(4),))
+    (graph,) = cache.graphs(owner).values()
+    assert graph.held == (24, 0, 0, 24, 4)
+    counters = profiling.report()["counters"]     # the warm-up's and the
+    assert (counters["rotate_calls"],             # first replay's
+            counters["rotate_persistent_calls"]) == (48, 8)
 
 
 # -- the ring decoder ---------------------------------------------------------

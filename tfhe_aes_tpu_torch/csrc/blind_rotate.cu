@@ -53,7 +53,11 @@
 // A K1 block owns whole bits (each bit's R <= 32 digit rows padded to 16
 // or 32, so its MAC never leaves the block) and 64 residue columns with
 // their paired hi columns, two blocks an SM; the grid runs the column
-// tiles of one row tile together, so the A tile is read from L2.  A K2
+// tiles of one row tile together, so the A tile is read from L2.  From
+// 4 tiles an SM on (ops/cuda_blind_rotate.py k1_persistent) K1 runs
+// persistently instead, one block an SM keeping a column tile's forward
+// slice and BSK rows for a run of row tiles (br_forward_mac_kernel_persistent
+// in csrc/blind_rotate_k1.cu).  A K2
 // block owns 128 rows of (bit, GLWE component) and 32 output coefficients
 // across all primes, two blocks an SM, so one block's epilogue overlaps
 // the other's products.  Where that grid fills under a third of the card
@@ -63,45 +67,27 @@
 // one prime a block, which share the CRT's rows through distributed shared
 // memory (the chain P times shorter, the epilogue split P ways).
 //
-// Left for later: K1's epilogue (the residues, the MAC, the twiddle) costs
-// about as much as its products at 4096 bits; L2 traffic does not bound it
-// (clusters of two CTAs sharing the fwd tile through multicast copies gave
-// the same words but ran slower).
-// A persistent step loop would remove the gaps between the 2n launches
-// (a CUDA graph of the WoPBS already holds them).
+// Left for later: on the H100 at PARAM_OPT 2048 bits K1 one block a tile
+// takes 0.86 ms a step, 0.27 of it its products with their operand copies
+// and the rest its epilogue (stage cuts, scripts/br_stage_cut.py); the
+// persistent K1 0.55 ms, 0.16 of it without its epilogue, whose residues'
+// reductions and __dp4a MAC (two warpgroups an SM) are the rest.  Clusters
+// of two CTAs sharing the fwd tile through multicast copies gave the same
+// words but ran slower.  A persistent step loop would remove the gaps
+// between the 2n launches (a CUDA graph of the WoPBS already holds them).
 //
 // Exact by construction: the products are exact int32 sums, the reductions
 // exact, and the CRT alpha uses the same 2^-40 fixed point as the plain
 // version, so the words equal blind_rotate_plain's bit for bit.
-#include "rns32.cuh"
-#include "sm90_gemm.cuh"
+#include "blind_rotate.cuh"
 
 namespace tfhe {
 
-using sm90::kBK;
-using sm90::kConsumers;
-using sm90::kRowsA;
-using sm90::kThreads;
-using sm90::kmajor_col;
-using sm90::kmajor_row;
-
-// K1: 64 residue columns (+ their hi columns) a tile, four stages, two
-// blocks an SM so that one block's epilogue overlaps the other's products.
-constexpr int kCols1 = 64, kBN1 = 2 * kCols1, kStages1 = 4, kBlocks1 = 2;
 constexpr int kBitStride1 = kConsumers / kCols1;
 // K2: 32 output coefficients (+ their hi columns) a tile, three stages,
 // two blocks an SM (~108 KB of shared memory each).
 constexpr int kCols2 = 32, kBN2 = 2 * kCols2, kStages2 = 3, kBlocks2 = 2;
 constexpr int kMaxBitsPerThread = kRowsA / 16 / kBitStride1;  // rpad 16
-
-// The shapes of one rotate call.  Every scratch operand is below 2^31
-// bytes (checked by the wrapper), so offsets into it are 32-bit.
-struct Shape {
-  int B, J, N, PN, R, rpad, lev, blog, shift, wide, dn;
-  int rows1;    // digit rows: bits padded to 128 / rpad, x rpad
-  int rows2;    // X rows a prime: B * J padded to 128
-  int bp_rows;  // K1's B operand rows: 2 kCols1 a column tile
-};
 
 // Balanced gadget digits of one accumulator word (row m2 = b (k+1) + u of
 // acc) into the digit rows b * rpad + u * lev + l of A; a_lo (a_hi) is the
@@ -435,8 +421,12 @@ using namespace tfhe;
 // Scratch, zero-filled by the caller: A [rows1][dn] and X [P][rows2][2N],
 // k-major tiles (rows1, rows2 as in Shape), each below 2^31 bytes.
 // k2_cluster: 1 runs K2 a block a tile, n_primes a cluster of one block a
-// prime a tile (ops/cuda_blind_rotate.py k2_cluster decides).
-// Returns a cudaError_t (0 = ok).
+// prime a tile (ops/cuda_blind_rotate.py k2_cluster decides).  k1_blocks:
+// 0 runs K1 a block a tile; else k1_persistent (csrc/blind_rotate_k1.cu
+// tfhe_k1_persistent) runs the persistent K1 each step on that many blocks
+// (one an SM), walking k1_rounds rounds with k1_stages A stages a
+// warpgroup (ops/cuda_blind_rotate.py k1_persistent, walk_rounds,
+// k1_stages).  Returns a cudaError_t (0 = ok).
 extern "C" int tfhe_blind_rotate(
     long long* acc, const int32_t* tilde, int tstride, const int8_t* bsk,
     const int8_t* fwd_tiles, const int8_t* inv_tiles, const int16_t* rot,
@@ -444,6 +434,7 @@ extern "C" int tfhe_blind_rotate(
     int blog, int q, const int* primes, const unsigned* barrett_m,
     const unsigned* barrett_off, const unsigned long long* mk,
     const long long* fp, int n_primes, unsigned long long m, int k2_cluster,
+    int k1_blocks, int k1_rounds, int k1_stages, void* k1_persistent,
     void* stream) {
   const int R = kp1 * lev;
   if (n_primes < 1 || n_primes > kMaxPrimes || R > 32 || N % 64 != 0 ||
@@ -482,6 +473,8 @@ extern "C" int tfhe_blind_rotate(
   const size_t smem2 = sm90::Ring<kBN2, kStages2>::kBytes +
                        (size_t)(split ? 1 : n_primes) * kRowsA * kCols2 * 2 +
                        (size_t)kRowsA * kCols2 * 8 + 2 * kStages2 * 8;
+  const K1PersistentFn k1p = reinterpret_cast<K1PersistentFn>(k1_persistent);
+  if (k1_blocks > 0 && k1p == nullptr) return (int)cudaErrorInvalidValue;
   TFHE_CHECK(raise_smem_limit((const void*)k1, smem1));
   TFHE_CHECK(raise_smem_limit((const void*)k2, smem2));
   const dim3 grid1(s.PN / kCols1, s.rows1 / kRowsA);
@@ -503,9 +496,15 @@ extern "C" int tfhe_blind_rotate(
                                                                        A);
   TFHE_CHECK(cudaGetLastError());
   for (int step = 0; step < n_steps; ++step) {
-    k1<<<grid1, kThreads, smem1, st>>>(A, fwd_tiles, bsk, rot, tilde, tstride,
-                                       step, s, c, X);
-    TFHE_CHECK(cudaGetLastError());
+    if (k1_blocks > 0) {
+      const int rc = k1p(A, fwd_tiles, bsk, rot, tilde, tstride, step, &s,
+                         &c, k1_blocks, k1_rounds, k1_stages, X, stream);
+      if (rc != 0) return rc;
+    } else {
+      k1<<<grid1, kThreads, smem1, st>>>(A, fwd_tiles, bsk, rot, tilde,
+                                         tstride, step, s, c, X);
+      TFHE_CHECK(cudaGetLastError());
+    }
     TFHE_CHECK(cudaLaunchKernelEx(&cfg2, k2, X, inv_tiles, s, c, acc,
                                   step + 1 < n_steps ? A : nullptr));
   }

@@ -79,6 +79,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// The same for a thread that waits long and should leave its SM's issue
+// slots to the others meanwhile: it sleeps between polls.
+__device__ __forceinline__ void mbar_wait_sleep(uint64_t* bar, uint32_t parity,
+                                                unsigned ns) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    if (spins == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    __nanosleep(ns);
+  }
+}
+
 // Bulk copy global -> shared (bytes % 16 == 0, both ends 16-byte aligned),
 // completing `bytes` transactions on `bar`.
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
@@ -108,6 +128,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // left).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Named barrier `id` over `threads` threads (a consumer warpgroup: 128).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Thread-block clusters.  A barrier of every thread of the cluster that has

@@ -95,10 +95,12 @@ def capturable(group) -> bool:
 def kernel_counters() -> tuple:
     """The wrappers whose ``launches`` a graph's replays add to: the
     rotate's, VP's and the device marks' (utils/profiling.py), then the
-    rotate calls whose K2 ran split (``cuda_blind_rotate.k2_split``)."""
+    rotate calls whose K2 ran split (``cuda_blind_rotate.k2_split``) and
+    those whose K1 ran persistently (``cuda_blind_rotate.k1_persistent``)."""
     from . import cuda_blind_rotate, cuda_vp
     return (cuda_blind_rotate.blind_rotate_cuda, cuda_vp.vp_rotations_cuda,
-            profiling.mark_cuda, cuda_blind_rotate.k2_split)
+            profiling.mark_cuda, cuda_blind_rotate.k2_split,
+            cuda_blind_rotate.k1_persistent)
 
 
 class CudaCapture:

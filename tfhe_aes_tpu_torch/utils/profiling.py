@@ -399,9 +399,9 @@ def report() -> dict:
     ``marks_logged`` (the logged marks a card ran: as many MARK_KERNEL
     records as a profile of the same window holds), ``counters`` (units,
     WoPBS runs by shape, mark launches, and the rotate calls and those of
-    them whose K2 ran split) and ``layers`` (by host and device span name:
-    count, seconds, self seconds).  Reads the rings of the cards with
-    logged marks."""
+    them whose K2 ran split and whose K1 ran persistently) and ``layers``
+    (by host and device span name: count, seconds, self seconds).  Reads
+    the rings of the cards with logged marks."""
     from ..ops import cuda_blind_rotate
     with _lock:
         host = [dict(s) for s in _spans]
@@ -426,7 +426,9 @@ def report() -> dict:
                       for s, n in sorted(wopbs.items())],
             "mark_launches": mark_cuda.launches,
             "rotate_calls": cuda_blind_rotate.blind_rotate_cuda.launches,
-            "rotate_split_calls": cuda_blind_rotate.k2_split.launches},
+            "rotate_split_calls": cuda_blind_rotate.k2_split.launches,
+            "rotate_persistent_calls":
+                cuda_blind_rotate.k1_persistent.launches},
         "layers": {
             "host": _layers(host, lambda s: s["parent"]
                             if s["parent"] in by_id else None),

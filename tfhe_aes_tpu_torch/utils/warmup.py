@@ -37,7 +37,7 @@ from ..params import ParamSet
 from . import device as device_mod
 from . import torus
 
-KERNELS = ("blind_rotate", "vertical_packing", "marks")
+KERNELS = ("blind_rotate", "blind_rotate_k1", "vertical_packing", "marks")
 
 
 def _tiles(params: ParamSet, device: torch.device) -> None:
