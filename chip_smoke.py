@@ -110,8 +110,8 @@ the script exits non-zero:
      Server.ctr_keystream over 1 to 8 blocks in turn on one key set, then
      1 and 8 again, the allocated and reserved memory after each beside
      the bytes of the new graph's static buffers.
-Every launch count is read from zero around one run of a path (phases 3,
-5 and 6; each of phase 7's two runs; each of phase 8's (a), (b)
+Every launch count is what the port's counts (utils/profiling) grew by
+over one run of a path (phases 3, 5 and 6; each of phase 7's two runs; each of phase 8's (a), (b)
 and (c), whose ranks count their own and report them; each of phase 9's two study
 runs, summed; phase 10's two CLI processes, each counting its own and
 summed; phase 11, eager and graphed calls together; phase 12, the
@@ -252,15 +252,28 @@ def _require_equal(got, want, what: str) -> float:
     return _max_abs_err(got, want)
 
 
-def _reset_launches(wrappers) -> None:
-    for fn in wrappers.values():
-        fn.launches = 0
+# The kernels whose calls the phases count, by name: their keys in the
+# port's counts (utils/profiling.COUNTS).
+COUNTED = {"blind_rotate": "rotate_calls", "vertical_packing": "vp_calls"}
 
 
-def _read_launches(wrappers, path: str) -> dict:
-    """The launch counts since _reset_launches; raises if a kernel of the
-    path was not launched."""
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+def _launches(since=None) -> dict:
+    """The counted kernels' calls so far by name, less those of `since`
+    (an earlier _launches())."""
+    from tfhe_aes_tpu_torch.utils import profiling
+    return {name: profiling.COUNTS[key] - (since or {}).get(name, 0)
+            for name, key in COUNTED.items()}
+
+
+def _held(graph) -> dict:
+    """The counted kernels' calls a replay of `graph` adds, by name."""
+    return {name: graph.record.counts[key] for name, key in COUNTED.items()}
+
+
+def _read_launches(since: dict, path: str) -> dict:
+    """The launch counts since `since` (_launches()); raises if a kernel
+    of the path was not launched."""
+    counts = _launches(since)
     if min(counts.values()) < 1:
         raise AssertionError(f"{path}: a kernel was not launched: {counts}")
     return counts
@@ -311,7 +324,7 @@ def _profile_decrypt(server, rks, ct, n_blocks: int,
     return 100 * busy / wall
 
 
-def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
+def _reference_phases(dev, host_keygen_s: float) -> dict:
     """Phases 4-6, with the key cache in $TFHE_AES_TPU_CACHE.  Returns the
     launch counts of each path run."""
     import numpy as np
@@ -375,11 +388,11 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
     enc_key = torus.from_u64(client.encrypt_u128(cli.NIST_KEY), dev)
     state = torus.from_u64(np.stack([client.encrypt_u128(p)
                                      for p in cli.NIST_PLAINS]), dev)
-    _reset_launches(wrappers)
+    start = _launches()
     rks, pk_ms = _timed(server.aes_key_expansion, enc_key, pk_rcon=True)
     ct, enc_ms = _timed(server.aes_encrypt, rks, state)
     pt, dec_ms = _timed(server.aes_decrypt, rks, ct)
-    launches = _read_launches(wrappers, "phase 5")
+    launches = _read_launches(start, "phase 5")
     rk_host = torus.to_u64(rks)
     want_rk = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(cli.NIST_KEY))
     for r in range(11):
@@ -405,7 +418,7 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
     del server, keys, rks, ct, pt, state, enc_key
 
     # -- phase 6: the CLI, on the cached keys ---------------------------------
-    _reset_launches(wrappers)
+    start = _launches()
     seed = str(CACHE_SEED)
     outs = [_run_cli(cli, ["--params", "tpu", "--seed", seed,
                            "--number-of-outputs", "2", "--iv", hex(IV),
@@ -413,7 +426,7 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
                            "--noise-asserts"]),
             _run_cli(cli, ["--params", "tpu", "--seed", seed, "--test",
                            "--test-random", "1"])]
-    cli_launches = _read_launches(wrappers, "phase 6")
+    cli_launches = _read_launches(start, "phase 6")
     for text, _ in outs:
         if "loaded cached keys" not in text or "device keygen" in text:
             raise AssertionError("the CLI did not load the key cache")
@@ -426,7 +439,7 @@ def _reference_phases(dev, wrappers, host_keygen_s: float) -> dict:
             "cli (phase 6)": cli_launches}
 
 
-def _ctr_phase(dev, wrappers) -> dict:
+def _ctr_phase(dev) -> dict:
     """Phase 7: PARAM_TPU at 64 blocks with 4 blocks decrypted back, then
     PARAM_OPT at 4 blocks verified on the card, each batch timed on its
     second call (a replay); keys by device keygen beside the warm-up,
@@ -435,7 +448,6 @@ def _ctr_phase(dev, wrappers) -> dict:
     launch counts of each run, by path."""
     import torch
     from tfhe_aes_tpu_torch import cli
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate
     from tfhe_aes_tpu_torch.params import PARAM_OPT, PARAM_TPU
     from tfhe_aes_tpu_torch.server import Server
     from tfhe_aes_tpu_torch.utils import profiling, torus, warmup
@@ -445,8 +457,8 @@ def _ctr_phase(dev, wrappers) -> dict:
     torch.cuda.empty_cache()
     paths = {}
     for params, blocks, decrypt, on_card in runs:
-        _reset_launches(wrappers)
-        persistent0 = cuda_blind_rotate.k1_persistent.launches
+        start = _launches()
+        persistent0 = profiling.COUNTS["rotate_persistent_calls"]
         t0 = time.perf_counter()
         warm = warmup.precompile(params, blocks, device=dev)
         client, keys = cli.client_and_keys(params, 0, dev, True)
@@ -472,10 +484,10 @@ def _ctr_phase(dev, wrappers) -> dict:
                     raise AssertionError(f"{params.name}: decrypt "
                                          f"round-trip block {i} wrong")
         path = f"ctr {params.name} (phase 7)"
-        paths[path] = _read_launches(wrappers, path)
+        paths[path] = _read_launches(start, path)
         # PARAM_OPT's rounds (512 bits) run K1 persistently; PARAM_TPU's
         # slice does not fit, so none of its rotates do.
-        persistent = cuda_blind_rotate.k1_persistent.launches - persistent0
+        persistent = profiling.COUNTS["rotate_persistent_calls"] - persistent0
         if (persistent > 0) != (params is PARAM_OPT):
             raise AssertionError(f"phase 7: {params.name}: {persistent} "
                                  f"rotate calls ran K1 persistently")
@@ -498,7 +510,7 @@ def _toy_mesh_rank(rank, out_dir, port) -> None:
     import numpy as np
     import torch
     from tfhe_aes_tpu_torch.client.client import Client
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp, graphs
+    from tfhe_aes_tpu_torch.ops import graphs
     from tfhe_aes_tpu_torch.parallel import mesh
     from tfhe_aes_tpu_torch.params import PARAM_TOY
 
@@ -511,12 +523,10 @@ def _toy_mesh_rank(rank, out_dir, port) -> None:
         x = {k: torch.from_numpy(v) for k, v in
              np.load(os.path.join(out_dir, "in.npz")).items()}
         fn = mesh.sharded_ctr_fn(m, skeys, TOY_MESH_BLOCKS, shard_bytes=True)
-        wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
-                    "vertical_packing": cuda_vp.vp_rotations_cuda}
-        _reset_launches(wrappers)
+        start = _launches()
         local, _ = fn(x["rks"], x["iv"], x["lut_lsb"], x["luts_rest"])
         whole = mesh.gather_blocks(m, local).cpu().numpy()
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = _launches(start)
         np.save(os.path.join(out_dir, f"out{rank}.npy"), whole)
         with open(os.path.join(out_dir, f"launches{rank}.json"), "w") as f:
             json.dump({"launches": launches,
@@ -536,7 +546,7 @@ def _nccl_mesh_rank(rank, out_dir, port) -> None:
     import torch
     from tfhe_aes_tpu_torch.client.client import Client
     from tfhe_aes_tpu_torch.models import fhe_aes
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp, graphs
+    from tfhe_aes_tpu_torch.ops import graphs
     from tfhe_aes_tpu_torch.parallel import mesh
     from tfhe_aes_tpu_torch.params import PARAM_TPU
     from tfhe_aes_tpu_torch.utils import serialization
@@ -554,18 +564,16 @@ def _nccl_mesh_rank(rank, out_dir, port) -> None:
         x = {k: torch.from_numpy(v) for k, v in
              np.load(os.path.join(out_dir, "in.npz")).items()}
         fn = mesh.sharded_ctr_fn(m, skeys, MESH_BLOCKS, shard_bytes=True)
-        wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
-                    "vertical_packing": cuda_vp.vp_rotations_cuda}
         graphs.GRAPHS.cuda.keep = True          # for the graph's DOT dump
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches(wrappers)
+        start = _launches()
         counts, times = [], []
         for i, s in enumerate("ABA"):
             (out, _), ms = _timed(fn, x["rks"], x["iv"], x[f"lut_lsb{s}"],
                                   x[f"luts_rest{s}"])
             np.save(os.path.join(out_dir, f"out{i}.npy"), out.cpu().numpy())
-            counts.append([w.launches for w in wrappers.values()])
+            counts.append(list(_launches(start).values()))
             times.append(ms)
         peak = _peak_gib()
         ((key, graph),) = graphs.GRAPHS.graphs(skeys).items()
@@ -582,7 +590,8 @@ def _nccl_mesh_rank(rank, out_dir, port) -> None:
         record = {
             "unit": unit is fhe_aes._CTR_STEP, "caps": static[-1],
             "captures": graphs.GRAPHS.captures,
-            "replays": graphs.GRAPHS.replays, "held": list(graph.held[:2]),
+            "replays": graphs.GRAPHS.replays,
+            "held": list(_held(graph).values()),
             "want_held": [rot, vp], "warm_wopbs": warm, "counts": counts,
             "ms": times, "kernel_nodes": n_nodes, "peak": peak,
             "gather_bytes": gathers,
@@ -620,7 +629,7 @@ def _spawn(target, nprocs: int, out_dir: str, what: str, timeout: float):
     return time.perf_counter() - t0
 
 
-def _nccl_mesh_phase(dev, wrappers) -> dict:
+def _nccl_mesh_phase(dev) -> dict:
     """Phase 8 (c): the graphed mesh function on a one-rank NCCL world,
     contraction rows and bytes sharded, PARAM_TPU, phase 7's keys; its
     first call and two replays against ctr_keystream in this process on
@@ -692,7 +701,7 @@ def _nccl_mesh_phase(dev, wrappers) -> dict:
                              f"byte all-gathers' copies: {gathers} "
                              f"(NCCL's copies {rec['nccl_copies']})")
     path = "mesh (c) NCCL one rank, graphed (phase 8)"
-    counts_c = dict(zip(wrappers, counts[-1]))
+    counts_c = dict(zip(COUNTED, counts[-1]))
     print(f"phase 8: (c) 1 rank over NCCL, dp=1 x mp=1, contraction rows and "
           f"bytes sharded, PARAM_TPU, {MESH_BLOCKS} blocks: first call (A) "
           f"and replays (B, A) == ctr_keystream word for word, decrypt to "
@@ -702,7 +711,7 @@ def _nccl_mesh_phase(dev, wrappers) -> dict:
           f"two ctr_keystream calls {ref_s:.1f} s; whole rank {wall:.1f} s")
     print(f"phase 8: (c) one graph (captures {rec['captures']}, replays "
           f"{rec['replays']}), caps {rec['caps']}; launches a replay "
-          f"{dict(zip(wrappers, held))} = its WoPBS', {rec['kernel_nodes']} "
+          f"{dict(zip(COUNTED, held))} = its WoPBS', {rec['kernel_nodes']} "
           f"kernel nodes of theirs in the graph; the warm-up's {warm}; "
           f"launches {counts_c}; peak allocated / reserved {rec['peak']} "
           f"(the 64-block bench in PERF.md: 19.41 / 22.84 GiB)")
@@ -714,7 +723,7 @@ def _nccl_mesh_phase(dev, wrappers) -> dict:
     return {path: counts_c}
 
 
-def _mesh_phase(dev, wrappers) -> dict:
+def _mesh_phase(dev) -> dict:
     """Phase 8: (a) the launcher over NCCL, a rank a card, PARAM_TPU, keys
     from phase 7's cache; (b) two gloo ranks on the one card at PARAM_TOY
     against the one-rank keystream.  Returns the launch counts of (a) and
@@ -754,7 +763,7 @@ def _mesh_phase(dev, wrappers) -> dict:
                              f"at the first call and replayed: {ranks}")
     path_a = "mesh (a) launcher (phase 8)"
     counts_a = {name: sum(rec["launches"][name] for rec in records)
-                for name in wrappers}
+                for name in COUNTED}
     if min(counts_a.values()) < 1:
         raise AssertionError(f"{path_a}: a kernel was not launched: "
                              f"{counts_a}")
@@ -791,7 +800,7 @@ def _mesh_phase(dev, wrappers) -> dict:
             for k, v in (("rks", rks), ("iv", enc_iv), ("lut_lsb", lut_lsb),
                          ("luts_rest", luts_rest))})
         wall = _spawn(_toy_mesh_rank, 2, out_dir, "phase 8 (b)", 300)
-        counts_b = {name: 0 for name in wrappers}
+        counts_b = dict.fromkeys(COUNTED, 0)
         for rank in range(2):
             got = np.load(os.path.join(out_dir, f"out{rank}.npy"))
             if not np.array_equal(got.view(np.uint64), ref):
@@ -821,10 +830,10 @@ def _mesh_phase(dev, wrappers) -> dict:
           f"this path (PARAM_TOY has cbs_level {PARAM_TOY.cbs_level}, the "
           f"VP kernel runs at cbs_level 1 only)")
     return {path_a: counts_a, path_b: counts_b,
-            **_nccl_mesh_phase(dev, wrappers)}
+            **_nccl_mesh_phase(dev)}
 
 
-def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
+def _noise_phase(dev) -> tuple[dict, list, float]:
     """Phase 9: the measured noise study (python -m
     tfhe_aes_tpu_torch.noise_study) at PARAM_TPU and PARAM_OPT on phase
     7's seed-0 caches, without classic samples, its reports in the cache
@@ -842,13 +851,13 @@ def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
 
     torch.cuda.empty_cache()
     path = "noise study (phase 9)"
-    counts = {name: 0 for name in wrappers}
+    counts = dict.fromkeys(COUNTED, 0)
     shapes, err_max = [], 0.0
     for p in (PARAM_TPU, PARAM_OPT):
         report = os.path.join(serialization.default_cache_dir(),
                               f"NOISE_REPORT_H100_{p.name}.md")
         buf = io.StringIO()
-        _reset_launches(wrappers)
+        start = _launches()
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -859,8 +868,8 @@ def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
             for line in buf.getvalue().splitlines():
                 print(f"phase 9:   {line}")
         wall = time.perf_counter() - t0
-        for name, fn in wrappers.items():
-            counts[name] += fn.launches
+        for name, n in _launches(start).items():
+            counts[name] += n
         if "loaded cached keys" not in buf.getvalue():
             raise AssertionError(f"phase 9 {p.name}: keys not from the cache")
         tpu = TPU_SIGMAS[p.name]
@@ -926,13 +935,13 @@ def _noise_phase(dev, wrappers) -> tuple[dict, list, float]:
 
 
 # Phase 10's child: runs the CLI as `python -m` does, then reports its
-# kernels' launch counts on stderr.
+# kernels' launch counts (COUNTED) on stderr.
 COLD_RUNNER = """
 import atexit, json, runpy, sys
-from tfhe_aes_tpu_torch.ops import cuda_blind_rotate, cuda_vp
+from tfhe_aes_tpu_torch.utils import profiling
 atexit.register(lambda: print("LAUNCHES " + json.dumps({
-    "blind_rotate": cuda_blind_rotate.blind_rotate_cuda.launches,
-    "vertical_packing": cuda_vp.vp_rotations_cuda.launches}),
+    "blind_rotate": profiling.COUNTS["rotate_calls"],
+    "vertical_packing": profiling.COUNTS["vp_calls"]}),
     file=sys.stderr, flush=True))
 sys.argv = ["tfhe_aes_tpu_torch.cli"] + sys.argv[1:]
 runpy.run_module("tfhe_aes_tpu_torch.cli", run_name="__main__",
@@ -940,7 +949,7 @@ runpy.run_module("tfhe_aes_tpu_torch.cli", run_name="__main__",
 """
 
 
-def _cold_start_phase(wrappers) -> dict:
+def _cold_start_phase() -> dict:
     """Phase 10: the CLI in a subprocess on a copy of the package without
     its built libraries and on an empty key cache, cold then warm.
     Returns the launch counts of the two runs, summed, by path."""
@@ -952,7 +961,7 @@ def _cold_start_phase(wrappers) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     work = tempfile.mkdtemp(prefix="tfhe_aes_smoke_cold_")
     path = "cold start (phase 10)"
-    counts = {name: 0 for name in wrappers}
+    counts = dict.fromkeys(COUNTED, 0)
     try:
         shutil.copytree(os.path.join(here, "tfhe_aes_tpu_torch"),
                         os.path.join(work, "tfhe_aes_tpu_torch"),
@@ -1069,7 +1078,7 @@ VP_NODES = ("vp_digits_kernel", "vp_forward_mac_kernel",
 
 def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     """The kernel nodes of a captured graph, by kernel, against what its
-    replays add to the launch counts (graph.held: rotate and VP calls,
+    replays add to the counts (graph.record.counts: rotate and VP calls,
     device marks, rotate calls whose K2 ran split, rotate calls whose K1
     ran persistently): a call of the rotate is one decomposition and n (the
     LWE dimension) steps of K1 and K2 (the split instance of K2 in a split
@@ -1081,10 +1090,13 @@ def _check_graph_nodes(graph, p, vp_bits: int, what: str):
     from tfhe_aes_tpu_torch.utils import profiling
     with tempfile.TemporaryDirectory() as tmp:
         nodes = graphs.kernel_nodes(graph, os.path.join(tmp, "graph.dot"))
-    rot, _, marks, split, persistent = graph.held
-    if marks != len(graph.marks):
+    counts = graph.record.counts
+    rot, marks, split, persistent = (counts[key] for key in (
+        "rotate_calls", "mark_launches", "rotate_split_calls",
+        "rotate_persistent_calls"))
+    if marks != len(graph.record.labels):
         raise AssertionError(f"{what}: the graph counts {marks} marks, its "
-                             f"capture recorded {len(graph.marks)}")
+                             f"capture recorded {len(graph.record.labels)}")
     want = {ROTATE_ONCE: rot,
             **{k: rot * p.lwe_dimension for k in ROTATE_NODES},
             ROTATE_SPLIT: split * p.lwe_dimension,
@@ -1117,7 +1129,7 @@ def _median_ms(fn, *args, runs: int = 3):
     return out, sorted(times)[runs // 2]
 
 
-def _graph_phase(dev, wrappers) -> dict:
+def _graph_phase(dev) -> dict:
     """Phase 11: the compiled dispatch units (ops/graphs.py) on phase 7's
     PARAM_TPU keys.  The staged key expansion graphed (first, warm) and
     eager; every WoPBS shape the main path's graphs take, graphed against
@@ -1147,7 +1159,7 @@ def _graph_phase(dev, wrappers) -> dict:
     keys = keys.to(dev)
     server = Server(keys)
     graphs.GRAPHS.cuda.keep = True          # for the graphs' DOT dumps
-    _reset_launches(wrappers)
+    start = _launches()
 
     # The staged key expansion: its one 16-byte graph captured in the
     # first call, replayed in the rest; then every WoPBS eager.
@@ -1197,7 +1209,6 @@ def _graph_phase(dev, wrappers) -> dict:
         ("pk-RCON refresh 12 B, L=8", 12, 8, fhe_aes._identity_lut(p)),
         ("pk-RCON refresh 4 B, L=8 (the SubWord's graph)", 4, 8,
          fhe_aes._identity_lut(p)))
-    rows = []
     for i, (label, n_bytes, nbits, lut_np) in enumerate(shapes):
         x, lut = encrypted(n_bytes, nbits, 100 + i), torus.from_u64(lut_np, dev)
         big = n_bytes == aes_bytes
@@ -1215,7 +1226,8 @@ def _graph_phase(dev, wrappers) -> dict:
                     if k[2][0][0] == tuple(x.shape)
                     and k[2][1][0] == tuple(lut.shape)]
         n_nodes = _check_graph_nodes(
-            graph, p, graph.held[1] * min(nbits, p.log2_poly_size),
+            graph, p,
+            graph.record.counts["vp_calls"] * min(nbits, p.log2_poly_size),
             f"phase 11 {label}")
         times = []
         for _ in range(3):
@@ -1227,11 +1239,10 @@ def _graph_phase(dev, wrappers) -> dict:
             print(f"phase 11: {label}: peak device memory, allocated / "
                   f"reserved: eager {eager_peak}, first graphed call and "
                   f"replays {_peak_gib()}")
-        rows.append((label, e_ms, f_ms, g_ms, graph.held))
         print(f"phase 11: {label}: replays == eager word for word; eager "
               f"{e_ms:.1f} ms, first call {f_ms:.1f} ms (a byte eagerly, "
               f"the capture, a replay), replay {g_ms:.1f} ms; launches a "
-              f"replay {dict(zip(wrappers, graph.held))}, {n_nodes} kernel "
+              f"replay {_held(graph)}, {n_nodes} kernel "
               f"nodes of theirs in the graph")
         del x, lut, want, first, got
 
@@ -1257,7 +1268,7 @@ def _graph_phase(dev, wrappers) -> dict:
               f"{e_ms:.2f} ms, replayed {g_ms:.2f} ms, == word for word; "
               f"bound {bound:.2f} ms")
 
-    counts = _read_launches(wrappers, path)
+    counts = _read_launches(start, path)
     graphs.GRAPHS.cuda.keep = False
     print(f"phase 11: {graphs.GRAPHS.captures} captures and "
           f"{graphs.GRAPHS.replays} replays in this process; whole phase "
@@ -1294,7 +1305,7 @@ def _unit_launches(p, unit, graph, static) -> tuple:
     return rot, vp, bits
 
 
-def _unit_phase(dev, wrappers, smi: str) -> dict:
+def _unit_phase(dev, smi: str) -> dict:
     """Phase 12: the whole-function dispatch units of models/fhe_aes
     (add_scalar_device_jit, ctr_step_jit, aes_encrypt_jit, aes_decrypt_jit,
     aes_key_expansion_jit with trivial and pk-RCON schedules) on phase 7's
@@ -1332,7 +1343,7 @@ def _unit_phase(dev, wrappers, smi: str) -> dict:
     server = Server(keys, client.make_public_key(),
                     rng=np.random.default_rng(9))
     graphs.GRAPHS.cuda.keep = True          # for the graphs' DOT dumps
-    _reset_launches(wrappers)
+    start = _launches()
 
     def u64(x):
         return torus.from_u64(x, dev)
@@ -1398,9 +1409,10 @@ def _unit_phase(dev, wrappers, smi: str) -> dict:
         if key[0] is not unit_obj:
             raise AssertionError(f"phase 12 {label}: not the unit's graph")
         rot, vp, vp_bits = _unit_launches(p, unit_obj, graph, key[1])
-        if graph.held[:2] != (rot, vp):
+        if tuple(_held(graph).values()) != (rot, vp):
             raise AssertionError(f"phase 12 {label}: the graph holds "
-                                 f"{graph.held} calls, its WoPBS {rot, vp}")
+                                 f"{_held(graph)} calls, its WoPBS "
+                                 f"{rot, vp}")
         n_nodes = _check_graph_nodes(graph, p, vp_bits, f"phase 12 {label}")
         host = torus.to_u64(got)
         if want_plain is None:
@@ -1416,7 +1428,7 @@ def _unit_phase(dev, wrappers, smi: str) -> dict:
               f"word, decrypt as AES says; eager {e_ms:.1f} ms, first call "
               f"{f_ms:.1f} ms (a warm-up call, the capture, a replay), "
               f"replays {times[0]:.1f} / {times[1]:.1f} ms; launches a replay "
-              f"{dict(zip(wrappers, graph.held))}, {n_nodes} kernel nodes "
+              f"{_held(graph)}, {n_nodes} kernel nodes "
               f"of theirs in the graph")
         if name == "aes_decrypt_jit":
             busy_g = _profile_decrypt(server, rks, cts["A"], n, "phase 12",
@@ -1471,7 +1483,7 @@ def _unit_phase(dev, wrappers, smi: str) -> dict:
           f"over {SWEEP_BLOCKS} new batch sizes and two replays, the "
           f"graphs' static buffers {static_sum / 2**20:.2f} MiB "
           f"({(grew - static_sum) / 2**20:+.2f} MiB beyond them)")
-    counts = _read_launches(wrappers, path)
+    counts = _read_launches(start, path)
     print(f"phase 12: whole phase {time.perf_counter() - t_phase:.1f} s; "
           f"launches {counts}")
     del server, keys, rks, iv
@@ -1506,8 +1518,6 @@ def main() -> int:
 
     dev = torch.device("cuda")
     U64 = np.uint64
-    wrappers = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
-                "vertical_packing": cuda_vp.vp_rotations_cuda}
 
     # -- phase 0: environment ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1898,14 +1908,12 @@ def main() -> int:
     server = Server(keys)
     enc_key = torus.from_u64(client.encrypt_u128(KEY), dev)
     enc_iv = torus.from_u64(client.encrypt_u128(IV), dev)
-    cuda_blind_rotate.blind_rotate_cuda.launches = 0
-    cuda_vp.vp_rotations_cuda.launches = 0
+    start = _launches()
     rks, keyexp_ms = _timed(server.aes_key_expansion, enc_key)
     ks1, ctr1_ms = _timed(server.ctr_keystream, rks, enc_iv, args.blocks, 0)
     ks2, ctr2_ms = _timed(server.ctr_keystream, rks, enc_iv, args.blocks2,
                           args.blocks)
-    launches = {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda.launches,
-                "vertical_packing": cuda_vp.vp_rotations_cuda.launches}
+    launches = _launches(start)
     rk_host = torus.to_u64(rks)
     want_rk = aes_plain.key_expansion(aes_plain.u128_to_bytes_be(KEY))
     for r in range(11):
@@ -1932,17 +1940,17 @@ def main() -> int:
     os.environ["TFHE_AES_TPU_CACHE"] = cache_dir
     try:
         paths = {"ctr (phase 3)": launches}
-        paths.update(_reference_phases(dev, wrappers, keygen_s))
-        paths.update(_ctr_phase(dev, wrappers))
-        paths.update(_mesh_phase(dev, wrappers))
-        noise_paths, noise_shapes, noise_err = _noise_phase(dev, wrappers)
+        paths.update(_reference_phases(dev, keygen_s))
+        paths.update(_ctr_phase(dev))
+        paths.update(_mesh_phase(dev))
+        noise_paths, noise_shapes, noise_err = _noise_phase(dev)
         paths.update(noise_paths)
         br_shapes += noise_shapes
         br_err = max(br_err, noise_err)
-        paths.update(_cold_start_phase(wrappers))
+        paths.update(_cold_start_phase())
         print("phase 10: temporary directory removed")
-        paths.update(_graph_phase(dev, wrappers))
-        paths.update(_unit_phase(dev, wrappers, smi))
+        paths.update(_graph_phase(dev))
+        paths.update(_unit_phase(dev, smi))
     finally:
         if old_cache is None:
             os.environ.pop("TFHE_AES_TPU_CACHE", None)

@@ -6,6 +6,7 @@ without the repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -19,7 +20,7 @@ from tfhe_aes_tpu_torch.ops import (blind_rotate, cuda_blind_rotate, cuda_vp,
                                     vertical_packing, wopbs)
 from tfhe_aes_tpu_torch.ops.keys import KEY_LEAVES
 from tfhe_aes_tpu_torch.params import PARAM_TOY, PARAM_TOY_WIDE
-from tfhe_aes_tpu_torch.utils import torus
+from tfhe_aes_tpu_torch.utils import profiling, torus
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +90,13 @@ def _persistent_calls(params, runs: dict, n_primes, sm_count) -> int:
         for (n_bytes, _, bits), count in runs.items())
 
 
+def _replay_adds(graph, before) -> bool:
+    """Whether the store grew by the graph's record and its unit's replay
+    since `before` (a copy of profiling.COUNTS), and by nothing else."""
+    return profiling.COUNTS - before == graph.record.counts + \
+        collections.Counter({("unit", graph.name, "replays"): 1})
+
+
 def _rotate_matches_plain(dev, params, k, client, n_batch):
     """The kernel's words equal the plain version's, and the call counts as
     split iff k2_cluster says so, as persistent iff k1_persistent does."""
@@ -97,8 +105,7 @@ def _rotate_matches_plain(dev, params, k, client, n_batch):
             torus.from_u64(test, dev))
     want = blind_rotate.blind_rotate_plain(*args, k.rfwd_limbs,
                                            k.rinv_crt_limbs, k.rot_table)
-    before = (cuda_blind_rotate.k2_split.launches,
-              cuda_blind_rotate.k1_persistent.launches)
+    before = profiling.COUNTS.copy()
     got = cuda_blind_rotate.blind_rotate_cuda(*args, k.fwd_full,
                                               k.inv_crt_full, k.rot_table)
     torch.cuda.synchronize()
@@ -107,9 +114,9 @@ def _rotate_matches_plain(dev, params, k, client, n_batch):
                                          _sm_count(dev)) > 1
     persistent = cuda_blind_rotate.k1_persistent(
         params, n_batch, k.rplan.n_primes, _sm_count(dev))
-    assert cuda_blind_rotate.k2_split.launches - before[0] == int(split)
-    assert cuda_blind_rotate.k1_persistent.launches - before[1] == \
-        int(persistent)
+    assert profiling.COUNTS - before == collections.Counter(
+        {"rotate_calls": 1, "rotate_split_calls": int(split),
+         "rotate_persistent_calls": int(persistent)})
     return split
 
 
@@ -186,9 +193,9 @@ def test_vp_kernel_matches_plain_through_wopbs(dev, monkeypatch, lut_kind, p,
     tabs = _VP_TABLES[lut_kind]()
     lut = torus.from_u64(luts.lut_polys_from_tables(p, tabs, 8), dev)
     cts = torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]), dev)
-    before = cuda_vp.vp_rotations_cuda.launches
+    before = profiling.COUNTS["vp_calls"]
     got = wopbs.many_wopbs(k, cts, lut)
-    assert cuda_vp.vp_rotations_cuda.launches == before + 1
+    assert profiling.COUNTS["vp_calls"] == before + 1
 
     monkeypatch.setattr(vertical_packing, "vp_rotations",
                         vertical_packing.vp_rotations_plain)
@@ -274,14 +281,13 @@ def test_warmup_leaves_nothing_to_build(dev, monkeypatch):
         return derived(leaf, what, lambda m: built.append(what) or build(m))
     monkeypatch.setattr(cuda_build, "_nvcc", no_nvcc)
     monkeypatch.setattr(cuda_build, "derived", spy)
-    launches = (cuda_blind_rotate.blind_rotate_cuda.launches,
-                cuda_vp.vp_rotations_cuda.launches)
+    before = profiling.COUNTS.copy()
     enc_key = torus.from_u64(client.encrypt_u128(0x2B7E1516), dev)
     rks = fhe_aes.aes_key_expansion(k, enc_key)
     torch.cuda.synchronize()
     assert built == []
-    assert cuda_blind_rotate.blind_rotate_cuda.launches > launches[0]
-    assert cuda_vp.vp_rotations_cuda.launches > launches[1]
+    added = profiling.COUNTS - before
+    assert added["rotate_calls"] > 0 and added["vp_calls"] > 0
     assert tuple(rks.shape) == (11,) + tuple(enc_key.shape)
 
 
@@ -298,20 +304,20 @@ def test_graphed_wopbs_equals_eager_and_replays_count(dev, params):
     runs = [torus.from_u64(np.stack([client.encrypt_byte(b) for b in vals]),
                            dev) for vals in ((0x5A, 0x01, 0xFF),
                                              (0x00, 0x80, 0x33))]
-    wrappers = graphs.kernel_counters()
     first = wopbs.many_wopbs_jit(k, runs[0], lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
     # A toy rotate's K2 runs split (clusters of one block a prime), its K1
     # (24 bits: 30 tiles) one block a tile.
-    assert graph.held == (params.cbs_level, int(params.cbs_level == 1),
-                          len(graph.marks), params.cbs_level,
-                          _persistent_calls(params, {(3, 1, 8): 1},
-                                            k.rplan.n_primes, _sm_count(dev)))
-    assert graph.held[4] == 0
-    counts = [w.launches for w in wrappers]
+    assert _persistent_calls(params, {(3, 1, 8): 1}, k.rplan.n_primes,
+                             _sm_count(dev)) == 0
+    assert graph.record.counts == collections.Counter({
+        "rotate_calls": params.cbs_level,
+        "vp_calls": int(params.cbs_level == 1),
+        "mark_launches": len(graph.record.labels),
+        "rotate_split_calls": params.cbs_level, ("wopbs", 3, 8, 8): 1})
+    before = profiling.COUNTS.copy()
     second = wopbs.many_wopbs_jit(k, runs[1], lut)
-    assert [w.launches - n for w, n in zip(wrappers, counts)] == \
-        list(graph.held)
+    assert _replay_adds(graph, before)
     again = wopbs.many_wopbs_jit(k, runs[0], lut)
     torch.cuda.synchronize()
     for cts, got in zip(runs + runs[:1], (first, second, again)):
@@ -382,7 +388,8 @@ def test_a_new_shapes_first_call_reuses_the_graph_pool(dev):
     from tfhe_aes_tpu_torch.ops import graphs
     class Owner:
         """A stand-in for a key set."""
-    cache, owner = graphs.GraphCache(counters=lambda: ()), Owner()
+    cache, owner = graphs.GraphCache(), Owner()
+    profiling.reset()                   # its captures and replays from zero
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -436,7 +443,10 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     wopbs.many_wopbs_jit(k, cts, lut)
     (graph,) = graphs.GRAPHS.graphs(k).values()
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
-    rot, vp, marks, split, persistent = graph.held
+    counts = graph.record.counts
+    rot, vp, marks, split, persistent = (counts[key] for key in (
+        "rotate_calls", "vp_calls", "mark_launches", "rotate_split_calls",
+        "rotate_persistent_calls"))
     assert split == rot                 # toy batches: K2 runs split
     assert persistent == 0              # and K1 (16 bits) one block a tile
     n, bits = params.lwe_dimension, min(8, params.log2_poly_size)
@@ -450,7 +460,7 @@ def test_a_graphs_kernel_nodes_are_the_launches_it_counts(dev, params,
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want} == want
     assert rot == params.cbs_level and vp == int(params.cbs_level == 1)
-    assert marks == len(graph.marks) == 5       # one chunk
+    assert marks == len(graph.record.labels) == 5       # one chunk
 
 
 def _unit_cases(client, dev, aes_plain, fhe_aes):
@@ -514,11 +524,9 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
         want = {s: plain(k, *args(s), **kw) for s in "AB"}
     first = unit(k, *args("B"), **kw)
     ((key, graph),) = graphs.GRAPHS.graphs(k).items()
-    wrappers = graphs.kernel_counters()
-    counts = [w.launches for w in wrappers]
+    before = profiling.COUNTS.copy()
     second = unit(k, *args("A"), **kw)
-    assert [w.launches - n for w, n in zip(wrappers, counts)] == \
-        list(graph.held)
+    assert _replay_adds(graph, before)
     torch.cuda.synchronize()
     assert torch.equal(first, want["B"]) and torch.equal(second, want["A"])
     static = key[1]
@@ -526,9 +534,17 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     n_wopbs = sum(runs.values())
     # K2 runs split at these batches; K1 persistently from 4 tiles an SM
     # (the rounds' 256 bits: 320 tiles, one block a tile on a 132-SM card).
-    assert graph.held == (n_wopbs, n_wopbs, len(graph.marks), n_wopbs,
-                          _persistent_calls(PARAM_TOY_VP, runs,
-                                            k.rplan.n_primes, _sm_count(dev)))
+    counts = graph.record.counts
+    persistent = _persistent_calls(PARAM_TOY_VP, runs, k.rplan.n_primes,
+                                   _sm_count(dev))
+    assert {key: counts[key] for key in (
+        "rotate_calls", "vp_calls", "mark_launches", "rotate_split_calls",
+        "rotate_persistent_calls")} == {
+        "rotate_calls": n_wopbs, "vp_calls": n_wopbs,
+        "mark_launches": len(graph.record.labels),
+        "rotate_split_calls": n_wopbs, "rotate_persistent_calls": persistent}
+    assert profiling.tagged("wopbs", counts) == {
+        ("wopbs", *shape): c for shape, c in runs.items()}
     assert all(cap >= shape[0] for shape, cap in static[-1])  # one chunk
     nodes = graphs.kernel_nodes(graph, tmp_path / "graph.dot")
     bits = sum(c * min(s[2], PARAM_TOY_VP.log2_poly_size)
@@ -536,11 +552,11 @@ def test_graphed_unit_equals_eager_and_counts_its_launches(dev, label,
     n = PARAM_TOY_VP.lwe_dimension
     want_nodes = {"br_decompose_kernel": n_wopbs,
                   "br_forward_mac_kernel": n * n_wopbs,
-                  "br_forward_mac_kernel_persistent": n * graph.held[4],
+                  "br_forward_mac_kernel_persistent": n * persistent,
                   "br_inverse_crt_kernel": n * n_wopbs,
                   "vp_digits_kernel": bits, "vp_forward_mac_kernel": bits,
                   "vp_inverse_crt_kernel": bits,
-                  "tfhe_mark": len(graph.marks)}
+                  "tfhe_mark": len(graph.record.labels)}
     assert {name: sum(c for f, c in nodes.items() if name in f)
             for name in want_nodes} == want_nodes
 
@@ -582,11 +598,9 @@ def test_one_rank_nccl_mesh_is_one_graph_equal_to_ctr_keystream(
         captures, replays = graphs.GRAPHS.captures, graphs.GRAPHS.replays
         first, lo = fn(rks, iv, *lut["B"])
         ((key, graph),) = graphs.GRAPHS.graphs(skeys).items()
-        wrappers = graphs.kernel_counters()
-        counts = [w.launches for w in wrappers]
+        before = profiling.COUNTS.copy()
         second, _ = fn(rks, iv, *lut["A"])
-        assert [w.launches - c for w, c in zip(wrappers, counts)] == \
-            list(graph.held)
+        assert _replay_adds(graph, before)
         assert (graphs.GRAPHS.captures - captures,
                 graphs.GRAPHS.replays - replays) == (1, 2)
         torch.cuda.synchronize()
@@ -595,7 +609,9 @@ def test_one_rank_nccl_mesh_is_one_graph_equal_to_ctr_keystream(
                                                              want["A"])
         assert key[0] is fhe_aes._CTR_STEP and key[1][0] is m.mp_group
         n_wopbs = sum(key[0].wopbs(*graph.inputs, *key[1][:-1]).values())
-        assert graph.held[:2] == (n_wopbs, n_wopbs) == (26, 26)
+        counts = graph.record.counts
+        assert (counts["rotate_calls"], counts["vp_calls"]) == \
+            (n_wopbs, n_wopbs) == (26, 26)
         copies = graphs.memcpy_nodes(graph, tmp_path / "graph.dot")
         big1 = p.big_lwe_dimension + 1
         assert {L: copies[("default (DEVICE to DEVICE)",
@@ -628,7 +644,6 @@ def test_replayed_marks_decode_in_order_and_leave_the_keystream(
     ctr_step run eagerly with no mark at all."""
     from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes
     from tfhe_aes_tpu_torch.ops import graphs
-    from tfhe_aes_tpu_torch.utils import profiling
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     rks, iv, lut = {}, {}, {}
     for s, off in (("A", 1), ("B", 0x101)):
@@ -640,9 +655,10 @@ def test_replayed_marks_decode_in_order_and_leave_the_keystream(
         want = {s: fhe_aes.ctr_step(k, rks[s], iv[s], *lut[s]) for s in "AB"}
     fhe_aes.ctr_step_jit(k, rks["A"], iv["A"], *lut["A"])   # the capture
     ((_, graph),) = graphs.GRAPHS.graphs(k).items()
-    assert graph.marks[0] == "|ctr_step,ripple_add"
-    assert graph.marks[-1] == "aes_rounds,ctr_step|"
-    assert len(graph.marks) == 3 + 5 * 26 == graph.held[2]
+    labels = graph.record.labels
+    assert labels[0] == "|ctr_step,ripple_add"
+    assert labels[-1] == "aes_rounds,ctr_step|"
+    assert len(labels) == 3 + 5 * 26 == graph.record.counts["mark_launches"]
     profiling.reset()
     profiling.enable()
     try:
@@ -655,10 +671,10 @@ def test_replayed_marks_decode_in_order_and_leave_the_keystream(
         assert torch.equal(got[s], want[s])
     rep = profiling.report()
     assert rep["lost"] == []
-    assert rep["marks_logged"] == len(rep["marks"]) == 2 * len(graph.marks)
+    assert rep["marks_logged"] == len(rep["marks"]) == 2 * len(labels)
     stamps = [m["ns"] for m in rep["marks"]]
     assert stamps == sorted(stamps)
-    n = len(graph.marks)
+    n = len(labels)
     assert stamps[n - 1] <= stamps[n]        # the replays do not overlap
     spans = rep["device_spans"]
     steps = [s for s in spans if s["name"] == "ctr_step"]
@@ -679,7 +695,6 @@ def test_the_staged_key_expansion_is_one_device_span_of_eleven_wopbs(dev):
     the eager work between) decodes to one key_expansion span over 11
     WoPBS, inside the server's top-level host span."""
     from tfhe_aes_tpu_torch.server import Server
-    from tfhe_aes_tpu_torch.utils import profiling
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     server = Server(k)
     enc_key = torus.from_u64(client.encrypt_u128(0x2B7E1516), dev)
@@ -709,7 +724,6 @@ def test_a_profile_holds_a_record_a_logged_mark_and_no_span_on_the_card(
     """Under torch.profiler a replayed WoPBS's marks are MARK_KERNEL
     records, as many as the marks logged; the host spans are host records
     only, with no mirror on the card's timeline."""
-    from tfhe_aes_tpu_torch.utils import profiling
     client, k = _keys(PARAM_TOY_VP, 11, dev)
     lut = torus.from_u64(luts.lut_polys_from_tables(
         PARAM_TOY_VP, tables.sbox()[None], 8), dev)

@@ -23,10 +23,11 @@ from tfhe_aes_tpu.ops import wopbs as jwopbs
 from tfhe_aes_tpu.params import PARAM_TOY
 from tfhe_aes_tpu_torch.client.client import Client
 from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes, tables
-from tfhe_aes_tpu_torch.ops import graphs, modular, ntt, wopbs
+from tfhe_aes_tpu_torch.ops import (cuda_blind_rotate, cuda_vp, graphs,
+                                    modular, ntt, wopbs)
 from tfhe_aes_tpu_torch.ops.keys import ContractionShard
 from tfhe_aes_tpu_torch.server import Server
-from tfhe_aes_tpu_torch.utils import noise_asserts, torus
+from tfhe_aes_tpu_torch.utils import noise_asserts, profiling, torus
 
 torch.set_num_threads(1)
 
@@ -35,18 +36,21 @@ PARAM_TOY_VP = dataclasses.replace(PARAM_TOY, name="PARAM_TOY_VP",
                                    cbs_level=1, cbs_base_log=15)
 
 
-class Counted:
-    """A stand-in for a kernel wrapper's launch counter."""
-    launches = 0
+@pytest.fixture(autouse=True)
+def fresh_counts():
+    """The counts of utils/profiling from zero, before and after each
+    test (the graph cache's captures and replays are among them)."""
+    profiling.reset()
+    yield
+    profiling.reset()
 
 
 class StubCapture:
     """Capture by recording.  capture() runs the warm-up call, then the
-    captured call once (its wrappers count, as the card's capture runs
-    the Python body, and the cache takes that off again) and keeps its
-    result as the static output; the graph's replay runs the captured
-    call again on the static inputs and writes the static output in
-    place."""
+    captured call once (it counts into the capture's record, as the
+    card's capture runs the Python body) and keeps its result as the
+    static output; the graph's replay runs the captured call again on the
+    static inputs and writes the static output in place."""
 
     def __init__(self, fail=False):
         self.fail = fail
@@ -67,30 +71,28 @@ class Owner:
     """A stand-in for a key set: weakly referenceable."""
 
 
-@pytest.fixture
-def fake_kernels():
-    a, b = Counted(), Counted()
-    return a, b, (lambda: (a, b))
-
-
 def _affine(owner, x, y, scale):
-    """A unit that launches 'kernel' a twice and b once."""
-    owner.kernels[0].launches += 2
-    owner.kernels[1].launches += 1
+    """A unit that launches its owner's 'kernel' a twice and b once."""
+    a, b = owner.kernels
+    profiling.count(a, 2)
+    profiling.count(b)
     return x * scale + y.sum()
 
 
-def _owner(kernels):
+def _owner(kernels=("a", "b")):
     o = Owner()
     o.kernels = kernels
     return o
 
 
-def test_graph_key_is_shapes_static_arguments_and_owner(fake_kernels):
-    a, b, counters = fake_kernels
+def _counts(keys=("a", "b")) -> tuple:
+    return tuple(profiling.COUNTS[k] for k in keys)
+
+
+def test_graph_key_is_shapes_static_arguments_and_owner():
     stub = StubCapture()
-    cache = graphs.GraphCache(capture=stub, counters=counters)
-    k1, k2 = _owner((a, b)), _owner((a, b))
+    cache = graphs.GraphCache(capture=stub)
+    k1, k2 = _owner(), _owner()
     x, y = torch.arange(4), torch.arange(3)
     for _ in range(3):
         cache(_affine, k1, (x, y), (2,))
@@ -106,11 +108,9 @@ def test_graph_key_is_shapes_static_arguments_and_owner(fake_kernels):
     assert len(cache) == 2
 
 
-def test_replay_copies_the_inputs_into_the_static_buffers(fake_kernels):
-    a, b, counters = fake_kernels
-    cache = graphs.GraphCache(capture=StubCapture(),
-                              counters=counters)
-    k = _owner((a, b))
+def test_replay_copies_the_inputs_into_the_static_buffers():
+    cache = graphs.GraphCache(capture=StubCapture())
+    k = _owner()
     cache(_affine, k, (torch.arange(4), torch.arange(3)), (2,))
     x, y = torch.tensor([5, -1, 7, 0]), torch.tensor([1, 1, 9])
     got = cache(_affine, k, (x, y), (2,))
@@ -120,11 +120,9 @@ def test_replay_copies_the_inputs_into_the_static_buffers(fake_kernels):
     assert graph.inputs[0].data_ptr() != x.data_ptr()
 
 
-def test_an_output_held_by_a_caller_survives_a_later_replay(fake_kernels):
-    a, b, counters = fake_kernels
-    cache = graphs.GraphCache(capture=StubCapture(),
-                              counters=counters)
-    k = _owner((a, b))
+def test_an_output_held_by_a_caller_survives_a_later_replay():
+    cache = graphs.GraphCache(capture=StubCapture())
+    k = _owner()
     y = torch.arange(3)
     first = cache(_affine, k, (torch.arange(4), y), (2,))
     second = cache(_affine, k, (torch.tensor([1, 2, 3, 4]), y), (2,))
@@ -135,14 +133,13 @@ def test_an_output_held_by_a_caller_survives_a_later_replay(fake_kernels):
     assert torch.equal(graph.output, torch.tensor([9, 9, 9, 9]) * 2 + 3)
 
 
-def test_a_first_call_warms_up_captures_and_replays(fake_kernels):
+def test_a_first_call_warms_up_captures_and_replays():
     """The warm-up call runs once, eagerly, on the caller's tensors and
     static arguments, before the capture; the first result is the
     graph's."""
-    a, b, counters = fake_kernels
     stub = StubCapture()
-    cache = graphs.GraphCache(capture=stub, counters=counters)
-    k = _owner((a, b))
+    cache = graphs.GraphCache(capture=stub)
+    k = _owner()
     seen = []
 
     def warm(owner, x, y, scale):
@@ -169,11 +166,9 @@ def test_the_wopbs_warm_up_is_its_first_byte(toy):
             wopbs.many_wopbs(td, cts, luts)[:1].numpy())
 
 
-def test_entries_go_when_the_owner_dies(fake_kernels):
-    a, b, counters = fake_kernels
-    cache = graphs.GraphCache(capture=StubCapture(),
-                              counters=counters)
-    k = _owner((a, b))
+def test_entries_go_when_the_owner_dies():
+    cache = graphs.GraphCache(capture=StubCapture())
+    k = _owner()
     cache(_affine, k, (torch.arange(4), torch.arange(3)), (2,))
     cache.memo(k, "cap", lambda: 7)
     assert len(cache) == 1
@@ -182,43 +177,55 @@ def test_entries_go_when_the_owner_dies(fake_kernels):
     assert len(cache) == 0
 
 
-def test_a_replay_adds_the_launches_its_graph_holds(fake_kernels):
-    a, b, counters = fake_kernels
-    cache = graphs.GraphCache(capture=StubCapture(),
-                              counters=counters)
-    k = _owner((a, b))
+def _harness_reads(cache) -> tuple:
+    """What benchmark/harness.py reads: the rotate's and VP's launches and
+    the captures."""
+    return (cuda_blind_rotate.blind_rotate_cuda.launches,
+            cuda_vp.vp_rotations_cuda.launches, cache.captures)
+
+
+@pytest.mark.parametrize("kernels", [("a", "b"),
+                                     ("rotate_calls", "vp_calls")])
+def test_a_replay_adds_the_launches_its_graph_holds(kernels):
+    """The counts of a unit's kernels, by name; with the rotate's and VP's
+    keys, the views the benchmark's harness reads follow them."""
+    cache = graphs.GraphCache(capture=StubCapture())
+    k = _owner(kernels)
     args = (torch.arange(4), torch.arange(3))
     cache(_affine, k, args, (2,))
     # The warm-up call and the first replay counted; the capture added
     # nothing.
-    assert (a.launches, b.launches) == (4, 2)
+    assert _counts(kernels) == (4, 2)
     (graph,) = cache.graphs(k).values()
-    assert graph.held == (2, 1)
+    assert graph.record.counts == {kernels[0]: 2, kernels[1]: 1}
+    harness = kernels == ("rotate_calls", "vp_calls")
+    if harness:
+        assert _harness_reads(cache) == (4, 2, 1)
     for n in range(1, 4):
         cache(_affine, k, args, (2,))
-        assert (a.launches, b.launches) == (4 + 2 * n, 2 + n)
+        assert _counts(kernels) == (4 + 2 * n, 2 + n)
+        if harness:
+            assert _harness_reads(cache) == (4 + 2 * n, 2 + n, 1)
 
 
-def test_a_failed_capture_raises_and_keeps_no_entry(fake_kernels):
-    a, b, counters = fake_kernels
+def test_a_failed_capture_raises_and_keeps_no_entry():
     stub = StubCapture(fail=True)
-    cache = graphs.GraphCache(capture=stub, counters=counters)
-    k = _owner((a, b))
+    cache = graphs.GraphCache(capture=stub)
+    k = _owner()
     with pytest.raises(RuntimeError, match="capture refused"):
         cache(_affine, k, (torch.arange(4), torch.arange(3)), (2,))
     assert cache.graphs(k) == {} and cache.captures == 0
-    assert (a.launches, b.launches) == (2, 1)      # the warm-up's alone
+    assert _counts() == (2, 1)      # the warm-up's alone
     assert stub.eager == 1
 
 
-def test_cpu_tensors_run_eagerly_without_a_capture(fake_kernels):
-    a, b, counters = fake_kernels
-    cache = graphs.GraphCache(counters=counters)
-    k = _owner((a, b))
+def test_cpu_tensors_run_eagerly_without_a_capture():
+    cache = graphs.GraphCache()
+    k = _owner()
     for _ in range(2):
         cache(_affine, k, (torch.arange(4), torch.arange(3)), (2,))
     assert cache.graphs(k) == {} and cache.captures == cache.replays == 0
-    assert (a.launches, b.launches) == (4, 2)
+    assert _counts() == (4, 2)
 
 
 _DOT_NODE = """"graph_1_node_{i}"[style="bold" shape="record" label="{{KERNEL

@@ -24,7 +24,7 @@ from tfhe_aes_tpu_torch.ops import keys as keys_mod
 from tfhe_aes_tpu_torch.ops import wopbs
 from tfhe_aes_tpu_torch.parallel import mesh
 from tfhe_aes_tpu_torch.parallel.multihost_ctr import free_port, tiny_params
-from tfhe_aes_tpu_torch.utils import serialization
+from tfhe_aes_tpu_torch.utils import profiling, serialization
 
 torch.set_num_threads(1)
 
@@ -113,6 +113,7 @@ def _graphed_run(m, skeys, x):
     ranks agreed and what the WoPBS saw."""
     stub = StubCapture()
     graphs.GRAPHS = graphs.GraphCache(capture=stub)
+    profiling.reset()               # its captures and replays from zero
     graphs.capturable = lambda group: True
     chosen = {}
 

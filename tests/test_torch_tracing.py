@@ -195,9 +195,7 @@ def test_unit_counters_under_the_stub_capture(monkeypatch, stand_in_stages):
     block, captures and replays once, the second replays; the WoPBS
     counters count the warm-up's 26 one-block WoPBS and each replay's 26
     of the batch, which the graph holds with its marks' labels."""
-    counters = (types.SimpleNamespace(launches=0),) * 3
-    cache = graphs.GraphCache(capture=StubCapture(),
-                              counters=lambda: counters)
+    cache = graphs.GraphCache(capture=StubCapture())
     monkeypatch.setattr(graphs, "GRAPHS", cache)
     rks, iv = _request_inputs()
     keys = ToyKeys()
@@ -219,16 +217,35 @@ def test_unit_counters_under_the_stub_capture(monkeypatch, stand_in_stages):
                     (32, 24, 8): 18, (32, 8, 8): 2}
     (graph,) = cache.graphs(keys).values()
     assert graph.name == "ctr_step"
-    assert graph.wopbs == {(2, 9, 8): 1, (2, 9, 9): 15, (32, 24, 8): 9,
-                           (32, 8, 8): 1}
-    assert len(graph.marks) == 3 + 5 * 26
-    assert graph.marks[:2] == ("|ctr_step,ripple_add", "|wopbs,extract")
-    assert graph.marks[-1] == "aes_rounds,ctr_step|"
-    assert graph.held == (0, 0, 0)          # the CPU launches no kernel
+    # Its WoPBS by shape, and no kernel: the CPU launches none.
+    assert graph.record.counts == {
+        ("wopbs", 2, 9, 8): 1, ("wopbs", 2, 9, 9): 15,
+        ("wopbs", 32, 24, 8): 9, ("wopbs", 32, 8, 8): 1}
+    labels = graph.record.labels
+    assert len(labels) == 3 + 5 * 26
+    assert labels[:2] == ["|ctr_step,ripple_add", "|wopbs,extract"]
+    assert labels[-1] == "aes_rounds,ctr_step|"
 
 
-def test_split_rotates_count_as_launches_do_under_the_stub_capture(
-        monkeypatch):
+def _rotates(bits):
+    """A request's rotate calls of `bits` bits each at PARAM_OPT on the
+    H100's 132 SMs, counted as blind_rotate_cuda counts them: the call,
+    and whether its K2 ran split and its K1 persistently."""
+    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
+    from tfhe_aes_tpu_torch.params import PARAM_OPT
+
+    def request(owner, x):
+        for b in bits:
+            profiling.count("rotate_calls")
+            if cbr.k2_cluster(PARAM_OPT, b, 5, 132) > 1:
+                profiling.count("rotate_split_calls")
+            if cbr.k1_persistent(PARAM_OPT, b, 5, 132):
+                profiling.count("rotate_persistent_calls")
+        return x + 1
+    return request
+
+
+def test_split_rotates_count_as_launches_do_under_the_stub_capture():
     """The rotate calls whose K2 ran split, and those whose K1 ran
     persistently, count as the launches do: the warm-up call counts
     itself, a capture nothing, each replay what its graph holds; report()
@@ -236,57 +253,39 @@ def test_split_rotates_count_as_launches_do_under_the_stub_capture(
     rotates on the H100's 132 SMs: the ripple add's first (128 bits)
     splits, its 15 later (144 bits) and the rounds' ten (2048 bits) do
     not; all 26 run K1 persistently (1280 tiles and more, K1_TILES_PER_SM
-    an SM from 528)."""
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
-    from tfhe_aes_tpu_torch.params import PARAM_OPT
-    monkeypatch.setattr(cbr.blind_rotate_cuda, "launches", 0)
-    monkeypatch.setattr(cbr.k2_split, "launches", 0)
-    monkeypatch.setattr(cbr.k1_persistent, "launches", 0)
+    an SM from 528).  The whole counters section, every key and value."""
     cache = graphs.GraphCache(capture=StubCapture())
-    bits = [128] + [144] * 15 + [2048] * 10
-
-    def request(owner, x):
-        for b in bits:
-            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132),
-                           cbr.k1_persistent(PARAM_OPT, b, 5, 132))
-        return x + 1
-
+    request = _rotates([128] + [144] * 15 + [2048] * 10)
     owner = ToyKeys()
     for n in (1, 2, 3):
         cache(request, owner, (torch.arange(4),))
         counters = profiling.report()["counters"]
-        assert (counters["rotate_calls"], counters["rotate_split_calls"],
-                counters["rotate_persistent_calls"]) \
-            == (26 * (n + 1), n + 1, 26 * (n + 1))
+        assert counters == {
+            "units": {"request": {"warm_ups": 1, "captures": 1,
+                                  "replays": n}},
+            "wopbs": [], "mark_launches": 0,
+            "rotate_calls": 26 * (n + 1), "rotate_split_calls": n + 1,
+            "rotate_persistent_calls": 26 * (n + 1)}
     (graph,) = cache.graphs(owner).values()
-    assert graph.held == (26, 0, 0, 1, 26)
+    assert graph.record.counts == {"rotate_calls": 26,
+                                   "rotate_split_calls": 1,
+                                   "rotate_persistent_calls": 26}
 
 
-def test_a_session_rotate_below_the_edge_counts_no_persistent_k1(
-        monkeypatch):
+def test_a_session_rotate_below_the_edge_counts_no_persistent_k1():
     """A one-block session's ripple add (8 and 9 bits: 80 and 90 K1 tiles)
     and SubWord (32 bits: 320 tiles, 2.4 an SM) run K1 one block a tile on
     the H100, its key schedule rounds (128 bits: 1280 tiles) persistently:
     the fifth count of a graph holds only the rounds where the first holds
     every rotate."""
-    from tfhe_aes_tpu_torch.ops import cuda_blind_rotate as cbr
-    from tfhe_aes_tpu_torch.params import PARAM_OPT
-    monkeypatch.setattr(cbr.blind_rotate_cuda, "launches", 0)
-    monkeypatch.setattr(cbr.k2_split, "launches", 0)
-    monkeypatch.setattr(cbr.k1_persistent, "launches", 0)
     cache = graphs.GraphCache(capture=StubCapture())
-    bits = [8] + [9] * 15 + [32] * 4 + [128] * 4
-
-    def request(owner, x):
-        for b in bits:
-            cbr.count_call(cbr.k2_cluster(PARAM_OPT, b, 5, 132),
-                           cbr.k1_persistent(PARAM_OPT, b, 5, 132))
-        return x + 1
-
+    request = _rotates([8] + [9] * 15 + [32] * 4 + [128] * 4)
     owner = ToyKeys()
     cache(request, owner, (torch.arange(4),))
     (graph,) = cache.graphs(owner).values()
-    assert graph.held == (24, 0, 0, 24, 4)
+    assert graph.record.counts == {"rotate_calls": 24,
+                                   "rotate_split_calls": 24,
+                                   "rotate_persistent_calls": 4}
     counters = profiling.report()["counters"]     # the warm-up's and the
     assert (counters["rotate_calls"],             # first replay's
             counters["rotate_persistent_calls"]) == (48, 8)

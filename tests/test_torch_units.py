@@ -34,7 +34,7 @@ from tfhe_aes_tpu_torch.models import aes_plain, fhe_aes, tables
 from tfhe_aes_tpu_torch.ops import graphs, wopbs
 from tfhe_aes_tpu_torch.ops.keys import ContractionShard
 from tfhe_aes_tpu_torch.server import Server
-from tfhe_aes_tpu_torch.utils import noise_asserts, torus
+from tfhe_aes_tpu_torch.utils import noise_asserts, profiling, torus
 
 torch.set_num_threads(1)
 
@@ -54,11 +54,6 @@ UNIT_OBJECTS = {"add_scalar_device_jit": fhe_aes._ADD_SCALAR,
                 "aes_encrypt_jit": fhe_aes._ENCRYPT,
                 "aes_decrypt_jit": fhe_aes._DECRYPT,
                 "aes_key_expansion_jit": fhe_aes._KEY_EXPANSION}
-
-
-class Counted:
-    """A stand-in for a kernel wrapper's launch counter."""
-    launches = 0
 
 
 class StubCapture:
@@ -100,13 +95,17 @@ class ReplayOnce:
 
 
 def _graphed_through(monkeypatch, capture):
-    """graphs.GRAPHS through `capture`, its launches counted on two
-    stand-in counters (the rotate's and the VP's)."""
-    counters = (Counted(), Counted())
-    cache = graphs.GraphCache(capture=capture, counters=lambda: counters)
+    """graphs.GRAPHS through `capture`, the counts of utils/profiling
+    (its captures and replays among them) from zero."""
+    cache = graphs.GraphCache(capture=capture)
     monkeypatch.setattr(graphs, "GRAPHS", cache)
-    return types.SimpleNamespace(cache=cache, capture=capture,
-                                 counters=counters)
+    profiling.reset()
+    return types.SimpleNamespace(cache=cache, capture=capture)
+
+
+def _calls(counts) -> tuple:
+    """The rotate and VP calls of a count store or a graph's record."""
+    return counts["rotate_calls"], counts["vp_calls"]
 
 
 @pytest.fixture
@@ -209,14 +208,14 @@ class FakeKeys:
 @pytest.fixture
 def fake_wopbs(monkeypatch, stub):
     """wopbs._many_wopbs as a cheap function of its input that counts one
-    rotate and one VP launch, records (shape, cap, inside a unit) a call."""
+    rotate and one VP call, records (shape, cap, inside a unit) a call."""
     calls = []
 
     def many(keys, x, luts, cap):
         calls.append(((x.shape[0], luts.shape[1], x.shape[1]), cap,
                       graphs.GRAPHS.inside()))
-        for c in stub.counters:
-            c.launches += 1
+        profiling.count("rotate_calls")
+        profiling.count("vp_calls")
         out = x.sum(dim=1, keepdim=True) * 3 + luts.sum()
         return out.expand(x.shape[0], luts.shape[1], x.shape[-1]).clone()
     monkeypatch.setattr(wopbs, "_many_wopbs", many)
@@ -267,7 +266,7 @@ def test_a_unit_captures_once_a_shape_with_its_wopbs_inline(stub,
         assert fn is fhe_aes._CTR_STEP
         (caps,) = static
         assert all(cap == shape[0] for shape, cap in caps)   # CPU: all bytes
-        assert graph.held == (26, 26)
+        assert _calls(graph.record.counts) == (26, 26)
 
 
 def test_the_caps_are_decided_once_before_the_capture_and_keyed(
@@ -329,14 +328,13 @@ def test_a_unit_graph_adds_its_wopbs_launches_a_replay(stub, fake_wopbs):
     keys = FakeKeys()
     enc_key = torch.zeros((16, 8, 5), dtype=torch.int64)
     rcon = torch.ones((10, 8, 5), dtype=torch.int64)
-    rot, vp = stub.counters
     fhe_aes.aes_key_expansion_jit(keys, enc_key, rcon)      # pk-RCON
     ((_, graph),) = stub.cache.graphs(keys).items()
-    assert graph.held == (30, 30)
-    assert (rot.launches, vp.launches) == (3 + 30, 3 + 30)  # first round
+    assert _calls(graph.record.counts) == (30, 30)
+    assert _calls(profiling.COUNTS) == (3 + 30, 3 + 30)    # first round
     for n in (1, 2):
         fhe_aes.aes_key_expansion_jit(keys, enc_key, rcon)
-        assert (rot.launches, vp.launches) == (33 + 30 * n, 33 + 30 * n)
+        assert _calls(profiling.COUNTS) == (33 + 30 * n, 33 + 30 * n)
 
 
 @pytest.mark.parametrize("unit", ["add_scalar_device_jit", "ctr_step_jit",
@@ -492,7 +490,7 @@ def test_sharded_keys_over_a_capturable_group_reach_the_cache(
                             for s in sorted(_ctr_wopbs(2))),)
     assert all(inside and cap == min(shape[0], 3)
                for shape, cap, inside in fake_wopbs)
-    assert graph.held == (26, 26)
+    assert _calls(graph.record.counts) == (26, 26)
 
 
 def test_sharded_caps_are_agreed_once_a_shape_never_in_a_replay(

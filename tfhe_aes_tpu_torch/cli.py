@@ -238,13 +238,13 @@ def _run(args, client, dkeys, device) -> None:
           f"{time.perf_counter() - t0:.2f}s")
 
     n = args.number_of_outputs
-    ran = dict(profiling.WOPBS)
+    ran = profiling.tagged("wopbs")
     t0 = time.perf_counter()
     ks = profiling.device_fence(server.ctr_keystream(round_keys, enc_iv, n))
     t_ctr = time.perf_counter() - t0
     pbs = client.params.cbs_level * sum(
-        (runs - ran.get(shape, 0)) * shape[0] * shape[2]
-        for shape, runs in profiling.WOPBS.items())
+        (runs - ran.get(key, 0)) * key[1] * key[3]    # bytes x bits
+        for key, runs in profiling.tagged("wopbs").items())
     print(f"[server] AES of #{n} outputs computed in: {t_ctr:.2f}s "
           f"({n / t_ctr * 60:.2f} blocks/min, {pbs / t_ctr:.0f} PBS/s)")
 

@@ -435,7 +435,7 @@ class _Unit:
     arguments.  wopbs(*args): the WoPBS it runs (the Counters above).
     first(*args): the arguments of its warm-up call, the first block of
     every batch-leading tensor (the key schedule's: its first round).
-    name: the unit's, for its counters (utils/profiling.UNITS)."""
+    name: the unit's, for its counts (utils/profiling)."""
     name: str
     fn: Callable
     wopbs: Callable

@@ -8,20 +8,20 @@ k-major tile order the kernel's bulk copies read (``kmajor_tiles``, once
 per key set: ``cuda_build.derived``), allocates the two scratch operands,
 picks K1's launch (``k1_persistent``: one block a tile, or one block an SM
 walking ``k1_walk``) and K2's (``k2_cluster``), and counts its calls in
-``blind_rotate_cuda.launches``, those whose K2 ran split in
-``k2_split.launches`` and those whose K1 ran persistently in
-``k1_persistent.launches``.
+utils/profiling's store: "rotate_calls", those whose K2 ran split
+"rotate_split_calls" and those whose K1 ran persistently
+"rotate_persistent_calls".
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import types
 
 import torch
 
 from ..params import ParamSet
+from ..utils import profiling
 from . import cuda_build, modular, ntt
 from .blind_rotate import rotate_finish, rotate_setup
 
@@ -47,10 +47,6 @@ K1_BARRIERS = 1024    # bytes kept for the barriers
 # tiles an SM (128 bits) and 1.03x at 2.4 (32 bits), 1.15-1.17x at 0.6-1.2
 # (chip_smoke.py phase 1; PERF.md's kernel table).
 K1_TILES_PER_SM = 4
-
-# The rotate calls whose K2 ran split: a counter of graphs.kernel_counters,
-# to which a replay adds what its graph holds, as to the launches.
-k2_split = types.SimpleNamespace(launches=0)
 
 
 def _lib():
@@ -256,9 +252,6 @@ def k1_persistent(params: ParamSet, n_bits: int, n_primes: int,
             and walk_rounds(cols, sm_count, row_tiles) <= K1_MAX_WALK)
 
 
-k1_persistent.launches = 0
-
-
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -274,6 +267,7 @@ def forward_sum_bound(params: ParamSet) -> int:
     return dn * digit * (128 + 256 * 126)
 
 
+@profiling.counted("rotate_calls")
 def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
                       bsk_limbs: torch.Tensor, lwe_ct: torch.Tensor,
                       test_glwe: torch.Tensor, fwd_full: torch.Tensor,
@@ -333,17 +327,9 @@ def blind_rotate_cuda(plan: ntt.NttPlan, params: ParamSet,
                 rot.data_ptr(), a_buf.data_ptr(), x_buf.data_ptr(),
                 B, params.lwe_dimension, kp1, n, lev, blog, q,
                 *cuda_build.prime_args(plan), cluster, *walk, stream)
-    count_call(cluster, persistent)
     cuda_build.check(rc, "blind-rotate kernel")
+    if cluster > 1:
+        profiling.count("rotate_split_calls")
+    if persistent:
+        profiling.count("rotate_persistent_calls")
     return rotate_finish(acc, q)
-
-
-def count_call(cluster: int, persistent: bool) -> None:
-    """One rotate call's counts: its own, the split one if its K2 ran as
-    clusters, the persistent one if its K1 ran persistently."""
-    blind_rotate_cuda.launches += 1
-    k2_split.launches += int(cluster > 1)
-    k1_persistent.launches += int(persistent)
-
-
-blind_rotate_cuda.launches = 0

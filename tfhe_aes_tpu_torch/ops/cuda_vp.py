@@ -9,8 +9,8 @@ accumulators into 128-row digit tiles, the bytes of GGSW rows a block
 stages, the input range of every 32-bit reduction) and refuses what the
 kernel does not take, lays the forward matrix of two-limb digits (from
 fwd_limbs) and vp_inv_full out in the k-major tile order once per key set,
-allocates the two scratch operands, and counts its launches in
-``vp_rotations_cuda.launches``.  The kernel splits a digit into two int8
+allocates the two scratch operands, and counts its calls as "vp_calls" in
+utils/profiling's store.  The kernel splits a digit into two int8
 limbs, not the three base-2^5 limbs vp_fwd3 is staged for, so that leaf is
 not read here.
 """
@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from ..params import ParamSet
+from ..utils import profiling
 from . import cuda_blind_rotate as cbr
 from . import cuda_build, modular, ntt
 from .keys import DeviceKeys
@@ -144,6 +145,7 @@ def vp_tiles(keys: DeviceKeys) -> tuple:
                                lambda m: cbr.inverse_tiles(m, V2_COLS)))
 
 
+@profiling.counted("vp_calls")
 def vp_rotations_cuda(keys: DeviceKeys, acc: torch.Tensor,
                       ggsw_ntt: torch.Tensor) -> torch.Tensor:
     """acc [B, L, k+1, N] u64 words; ggsw_ntt [nbits, P, B, k+1, k+1, N]
@@ -174,9 +176,5 @@ def vp_rotations_cuda(keys: DeviceKeys, acc: torch.Tensor,
                 a_buf.data_ptr(), x_buf.data_ptr(),
                 B, L, nbits, kp1, n, p.cbs_base_log,
                 *cuda_build.prime_args(plan), stream)
-    vp_rotations_cuda.launches += 1
     cuda_build.check(rc, "vertical-packing kernel")
     return acc
-
-
-vp_rotations_cuda.launches = 0

@@ -32,13 +32,11 @@ device of every tensor argument:
     could lie in another graph's intermediates;
   * a failed capture raises; nothing retries eagerly.  On CPU tensors the
     function runs eagerly: there is nothing to capture;
-  * the kernels' launch counters (``blind_rotate_cuda.launches``,
-    ``vp_rotations_cuda.launches``, the device marks' ``profiling.
-    mark_cuda.launches``) keep counting executions: the warm-up call
-    counts itself, a capture records how many launches its graph holds
-    and adds nothing, and each replay, the first call's too, adds that
-    many.  The same goes for the WoPBS runs and the marks' labels that
-    utils/profiling.py counts and logs, and each unit's warm-up calls,
+  * the counts of utils/profiling.py (the kernels' calls, the WoPBS runs,
+    the marks) keep counting executions: the warm-up call counts itself,
+    a capture records what its graph holds (``Graph.record``, the counts
+    and the marks' labels by name) and adds nothing, and each replay, the
+    first call's too, adds the record.  Each unit's warm-up calls,
     captures and replays are counted there by its name; the warm-up,
     capture, static-buffer copies, replay and clone are its host spans.
     ``kernel_nodes`` reads the kernel nodes a graph really holds, to check
@@ -90,17 +88,6 @@ def capturable(group) -> bool:
     group that is not a process group is not one."""
     return (isinstance(group, dist.ProcessGroup)
             and dist.get_backend(group) == "nccl")
-
-
-def kernel_counters() -> tuple:
-    """The wrappers whose ``launches`` a graph's replays add to: the
-    rotate's, VP's and the device marks' (utils/profiling.py), then the
-    rotate calls whose K2 ran split (``cuda_blind_rotate.k2_split``) and
-    those whose K1 ran persistently (``cuda_blind_rotate.k1_persistent``)."""
-    from . import cuda_blind_rotate, cuda_vp
-    return (cuda_blind_rotate.blind_rotate_cuda, cuda_vp.vp_rotations_cuda,
-            profiling.mark_cuda, cuda_blind_rotate.k2_split,
-            cuda_blind_rotate.k1_persistent)
 
 
 class CudaCapture:
@@ -197,15 +184,13 @@ def memcpy_nodes(graph: "Graph", path) -> collections.Counter:
 @dataclasses.dataclass
 class Graph:
     """One captured call: its static buffers, the graph (``replay()``),
-    the launches of each counted kernel it holds, the labels of the
-    device marks it holds in order, its WoPBS runs by shape, and the name
-    of its unit."""
+    what its capture recorded (utils/profiling.Record: the counts each
+    replay adds, by key, and the labels of the device marks it holds in
+    order), and the name of its unit."""
     graph: object
     inputs: tuple
     output: torch.Tensor
-    held: tuple
-    marks: tuple = ()
-    wopbs: dict = dataclasses.field(default_factory=dict)
+    record: profiling.Record
     name: str = ""
 
 
@@ -217,18 +202,24 @@ class GraphCache:
     of fn() in the graph)`` that calls warm() first (CudaCapture.capture);
     None takes ``self.cuda`` for CUDA tensors and runs CPU tensors eagerly
     (a test gives a stub, which then serves CPU tensors too).
-    counters: what returns the launch-counted wrappers (kernel_counters).
     """
 
-    def __init__(self, capture=None, counters=kernel_counters):
+    def __init__(self, capture=None):
         self.capture = capture
-        self.counters = counters
         self.cuda = CudaCapture()
         self._owners: dict[int, tuple[weakref.ref, dict]] = {}
         self._lock = threading.Lock()
         self._local = threading.local()
-        self.captures = 0
-        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        """Captures of every unit (utils/profiling's counts)."""
+        return _units("captures")
+
+    @property
+    def replays(self) -> int:
+        """Replays of every unit (utils/profiling's counts)."""
+        return _units("replays")
 
     def inside(self) -> bool:
         """Whether this thread is running a unit's warm-up call or capture
@@ -294,8 +285,8 @@ class GraphCache:
         prepares what the capture cannot (default: fn).  before(*inputs)
         runs on the inputs the call computes on (the static buffers of a
         graph) and after(output) on what it returns, once each a call,
-        outside any capture.  name: the unit's, for its counters
-        (utils/profiling.UNITS; default fn's)."""
+        outside any capture.  name: the unit's, for its counts
+        (utils/profiling; default fn's)."""
         capture = self.capture or (self.cuda if tensors[0].is_cuda
                                    else None)
         if capture is not None and self.inside():
@@ -327,12 +318,8 @@ class GraphCache:
                 before(*graph.inputs)
             with profiling.span("replay"):
                 graph.graph.replay()
-                self.replays += 1
-                profiling.count_unit(graph.name, "replays")
-                for wrapper, n in zip(self.counters(), graph.held):
-                    wrapper.launches += n
-                profiling.replayed(graph.output.device, graph.marks,
-                                   graph.wopbs)
+                profiling.count(("unit", graph.name, "replays"))
+                profiling.replayed(graph.output.device, graph.record)
             with profiling.span("clone"):
                 out = graph.output.clone()
         if after is not None:
@@ -344,37 +331,33 @@ class GraphCache:
         """The graph of run on static buffers shaped as `tensors`."""
         inputs = tuple(torch.empty_like(
             t, memory_format=torch.contiguous_format) for t in tensors)
-        wrappers = self.counters()
-        held, recorded = [], []
+        recorded = []
         profiling.prepare(tensors[0].device)
 
         def warm_up():
             with profiling.span("warm_up"):
-                profiling.count_unit(name, "warm_ups")
+                profiling.count(("unit", name, "warm_ups"))
                 return warm()
 
-        def counted():
-            """run(*inputs) under capture: what it launches is recorded as
-            the graph's and taken off the counters again; its marks and
-            WoPBS are recorded, not counted."""
-            before = [w.launches for w in wrappers]
-            try:
-                with profiling.span("capture"), profiling.recording() as rec:
-                    recorded[:] = [rec]
-                    return run(*inputs)
-            finally:
-                held[:] = [w.launches - n for w, n in zip(wrappers, before)]
-                for w, n in zip(wrappers, held):
-                    w.launches -= n         # a capture launches nothing
+        def recorded_run():
+            """run(*inputs) under capture: its counts and marks are
+            recorded as the graph's, not counted."""
+            with profiling.span("capture"), profiling.recording() as rec:
+                recorded[:] = [rec]
+                return run(*inputs)
 
         with self.unit():
             graph, output = capture.capture(tensors[0].device, warm_up,
-                                            counted)
-        self.captures += 1
-        profiling.count_unit(name, "captures")
-        rec = recorded[0] if recorded else profiling.Record()  # fn not run
-        return Graph(graph, inputs, output, tuple(held), tuple(rec.labels),
-                     dict(rec.wopbs), name)
+                                            recorded_run)
+        profiling.count(("unit", name, "captures"))
+        return Graph(graph, inputs, output,
+                     recorded[0] if recorded else profiling.Record(), name)
+
+
+def _units(what: str) -> int:
+    """The units' count of `what` ("captures", "replays") together."""
+    return sum(n for (_, _, w), n in profiling.tagged("unit").items()
+               if w == what)
 
 
 GRAPHS = GraphCache()

@@ -183,7 +183,7 @@ def _many_wopbs(keys: DeviceKeys, byte_bits_big: torch.Tensor,
     shard over NCCL.  Device marks split it into its stages (utils/
     profiling.py): extract, cbs_rotate, then staging and vp a chunk."""
     B, nbits = byte_bits_big.shape[0], byte_bits_big.shape[1]
-    profiling.count_wopbs((B, lut_polys.shape[1], nbits))
+    profiling.count(("wopbs", B, lut_polys.shape[1], nbits))
     profiling.mark(byte_bits_big, open=("wopbs", "extract"))
     small = extract_bits(keys, byte_bits_big)
     profiling.mark(small, close=("extract",), open=("cbs_rotate",))

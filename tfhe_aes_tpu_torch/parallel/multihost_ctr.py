@@ -62,11 +62,9 @@ def _params(name: str):
     return {**PARAMS, "toy512": PARAM_TOY_N512}.get(name) or tiny_params()
 
 
-def _launch_counts() -> dict:
-    """The CUDA kernels' launch counters (see ops/cuda_*.py)."""
-    from ..ops import cuda_blind_rotate, cuda_vp
-    return {"blind_rotate": cuda_blind_rotate.blind_rotate_cuda,
-            "vertical_packing": cuda_vp.vp_rotations_cuda}
+# The CUDA kernels' calls a worker reports, by name: their keys in
+# utils/profiling's counts.
+LAUNCHED = {"blind_rotate": "rotate_calls", "vertical_packing": "vp_calls"}
 
 
 def worker(args) -> None:
@@ -108,14 +106,13 @@ def worker(args) -> None:
     profiling.device_fence(fn(rks, enc_iv, lut_lsb, luts_rest)[0])
     first_s = time.perf_counter() - t0
     dist.barrier()
-    counters = _launch_counts() if m.device.type == "cuda" else {}
-    for wrapper in counters.values():
-        wrapper.launches = 0
+    before = profiling.COUNTS.copy()
     t0 = time.perf_counter()
     out, first = fn(rks, enc_iv, lut_lsb, luts_rest)
     profiling.device_fence(out)
     dt = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in counters.items()}
+    launches = {name: profiling.COUNTS[key] - before[key]
+                for name, key in LAUNCHED.items()}
     peak = ""
     if m.device.type == "cuda":
         peak = (f"; peak device memory "
@@ -135,7 +132,7 @@ def worker(args) -> None:
         "blocks_per_min": round(B / dt * 60.0, 2),
         "shard_keys": bool(args.shard_keys),
         "device": device_mod.record(m.device)}
-    if launches:
+    if m.device.type == "cuda":
         record["launches"] = launches
     print(json.dumps(record), flush=True)
     dist.destroy_process_group()

@@ -27,9 +27,13 @@ port's one tracing system:
     replay logs its slots and labels; ``report()`` reads those slots back.
     On CPU tensors a mark is a host stamp when tracing is on, and nothing
     otherwise;
-  * counters, always on: each graphed unit's warm-up calls, captures and
-    replays, and each WoPBS run by shape (bytes, LUT outputs, bits), a
-    graph's replays adding what its capture recorded;
+  * counters, always on: one store of counts by key (``count(key, n)``,
+    ``COUNTS``): the kernels' calls ("rotate_calls", "rotate_split_calls",
+    "rotate_persistent_calls", "vp_calls", "mark_launches"), each WoPBS run
+    by shape (("wopbs", bytes, LUT outputs, bits)) and each graphed unit's
+    warm-up calls, captures and replays (("unit", name, what)).  Under a
+    capture a count goes to the capture's Record, and each replay of the
+    graph adds the Record's counts (``replayed``);
   * ``report()`` / ``dump(path)``: the host spans, the device spans
     decoded from the ring, the counters, and each layer's self time (its
     duration less what its children cover).
@@ -65,8 +69,7 @@ _log: list = []                 # logged marks: _Logged
 _labels: dict = {}              # label -> mark id (1, 2, ...)
 _heads: dict = {}               # device -> marks run there (the ring's head)
 _loaded: set = set()            # devices the marks' module is loaded on
-UNITS: dict = {}                # unit -> {"warm_ups", "captures", "replays"}
-WOPBS: collections.Counter = collections.Counter()   # shape -> runs
+COUNTS: collections.Counter = collections.Counter()  # key -> count
 
 
 def device_fence(x: torch.Tensor) -> torch.Tensor:
@@ -97,12 +100,11 @@ def tracing() -> bool:
 
 
 def reset() -> None:
-    """Forget every record and counter (not the rings' heads)."""
+    """Forget every record and count (not the rings' heads)."""
     with _lock:
         _spans.clear()
         _log.clear()
-        UNITS.clear()
-        WOPBS.clear()
+        COUNTS.clear()
 
 
 # -- host spans ---------------------------------------------------------------
@@ -148,22 +150,22 @@ def _open_span():
     return stack[-1]["id"] if stack else None
 
 
-# -- capture records ----------------------------------------------------------
+# -- counts and capture records -----------------------------------------------
 
 class Record:
-    """What a capture recorded: its marks' labels in order, and its WoPBS
-    runs by shape."""
+    """What a capture recorded: its marks' labels in order, and its counts
+    by key."""
 
     def __init__(self):
         self.labels: list = []
-        self.wopbs: collections.Counter = collections.Counter()
+        self.counts: collections.Counter = collections.Counter()
 
 
 @contextlib.contextmanager
 def recording():
-    """Inside the block this thread records marks and WoPBS runs into the
-    Record it yields instead of counting or logging them: the body of a
-    capture, which runs nothing on the card."""
+    """Inside the block this thread records marks and counts into the
+    Record it yields instead of logging them or adding them to the store:
+    the body of a capture, which runs nothing on the card."""
     was = getattr(_local, "rec", None)
     rec = _local.rec = Record()
     try:
@@ -176,24 +178,47 @@ def _recording():
     return getattr(_local, "rec", None)
 
 
-def count_wopbs(shape: tuple) -> None:
-    """One WoPBS of shape (bytes, LUT outputs, bits a byte) ran (or, under
-    a capture, was recorded)."""
+def count(key, n: int = 1) -> None:
+    """Add n to the count of `key` (under a capture, to its Record's)."""
     rec = _recording()
     if rec is not None:
-        rec.wopbs[tuple(shape)] += 1
+        rec.counts[key] += n
         return
     with _lock:
-        WOPBS[tuple(shape)] += 1
+        COUNTS[key] += n
 
 
-def count_unit(name: str, what: str) -> None:
-    """A unit's warm-up call, capture or replay ("warm_ups", "captures",
-    "replays")."""
-    with _lock:
-        counts = UNITS.setdefault(name, {"warm_ups": 0, "captures": 0,
-                                         "replays": 0})
-        counts[what] += 1
+def tagged(tag: str, counts=None) -> dict:
+    """The counts (of the store, or of `counts`) whose key is a tuple that
+    starts with `tag`, by key."""
+    if counts is None:
+        with _lock:
+            counts = dict(COUNTS)
+    return {k: n for k, n in counts.items()
+            if isinstance(k, tuple) and k[0] == tag}
+
+
+def counted(key: str):
+    """Decorator: the function counts `key` each time it returns; its
+    read-only ``launches`` reads that count from the store."""
+    return functools.partial(_Counted, key=key)
+
+
+class _Counted:
+    """A function counted by counted(key)."""
+
+    def __init__(self, fn, key: str):
+        functools.update_wrapper(self, fn)
+        self._fn, self.key = fn, key
+
+    def __call__(self, *args, **kwargs):
+        out = self._fn(*args, **kwargs)
+        count(self.key)
+        return out
+
+    @property
+    def launches(self) -> int:
+        return COUNTS[self.key]
 
 
 class _Logged:
@@ -206,11 +231,12 @@ class _Logged:
         self.host, self.stamps = host, stamps
 
 
-def replayed(device: torch.device, labels: tuple, wopbs) -> None:
-    """A graph's replay ran its recorded marks and WoPBS on `device`."""
+def replayed(device: torch.device, record: Record) -> None:
+    """A graph's replay ran what its capture recorded on `device`: its
+    counts are added to the store, its marks ran."""
+    labels = record.labels
     with _lock:
-        for shape, n in wopbs.items():
-            WOPBS[shape] += n
+        COUNTS.update(record.counts)
         if device.type != "cuda" or not labels:
             return
         first = _heads.get(device, 0)
@@ -256,17 +282,14 @@ def prepare(device: torch.device) -> None:
 
 
 def mark_cuda(device: torch.device, label_id: int) -> None:
-    """One MARK_KERNEL launch on the device's current stream; counts its
-    launches in ``mark_cuda.launches``."""
+    """One MARK_KERNEL launch on the device's current stream, counted as
+    "mark_launches"."""
     from ..ops import cuda_build
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _lib().tfhe_mark_launch(label_id, stream)
-    mark_cuda.launches += 1
+    count("mark_launches")
     cuda_build.check(rc, "mark kernel")
-
-
-mark_cuda.launches = 0
 
 
 def _label(close=(), open=()) -> str:
@@ -397,17 +420,20 @@ def report() -> dict:
     ns, device), ``device_spans`` (decoded from them: a span whose stamp
     is lost has None for it, and ``lost`` says why),
     ``marks_logged`` (the logged marks a card ran: as many MARK_KERNEL
-    records as a profile of the same window holds), ``counters`` (units,
-    WoPBS runs by shape, mark launches, and the rotate calls and those of
-    them whose K2 ran split and whose K1 ran persistently) and ``layers``
-    (by host and device span name: count, seconds, self seconds).  Reads
-    the rings of the cards with logged marks."""
-    from ..ops import cuda_blind_rotate
+    records as a profile of the same window holds), ``counters`` (units'
+    warm-ups, captures and replays, WoPBS runs by shape, mark launches, and
+    the rotate calls and those of them whose K2 ran split and whose K1 ran
+    persistently) and ``layers`` (by host and device span name: count,
+    seconds, self seconds).  Reads the rings of the cards with logged
+    marks."""
     with _lock:
         host = [dict(s) for s in _spans]
         log = list(_log)
-        units = {k: dict(v) for k, v in UNITS.items()}
-        wopbs = dict(WOPBS)
+        counts = collections.Counter(COUNTS)
+    units = {}
+    for (_, name, what), n in tagged("unit", counts).items():
+        units.setdefault(name, dict.fromkeys(
+            ("warm_ups", "captures", "replays"), 0))[what] = n
     marks, lost = _marks(log)
     request = {s["id"]: s["request"] for s in host}
     device, errors = _device_spans(marks, request)
@@ -422,13 +448,12 @@ def report() -> dict:
         "lost": lost + errors,
         "counters": {
             "units": units,
-            "wopbs": [{"bytes": s[0], "luts": s[1], "bits": s[2], "runs": n}
-                      for s, n in sorted(wopbs.items())],
-            "mark_launches": mark_cuda.launches,
-            "rotate_calls": cuda_blind_rotate.blind_rotate_cuda.launches,
-            "rotate_split_calls": cuda_blind_rotate.k2_split.launches,
-            "rotate_persistent_calls":
-                cuda_blind_rotate.k1_persistent.launches},
+            "wopbs": [{"bytes": b, "luts": luts, "bits": bits, "runs": n}
+                      for (_, b, luts, bits), n in sorted(
+                          tagged("wopbs", counts).items())],
+            **{key: counts[key] for key in (
+                "mark_launches", "rotate_calls", "rotate_split_calls",
+                "rotate_persistent_calls")}},
         "layers": {
             "host": _layers(host, lambda s: s["parent"]
                             if s["parent"] in by_id else None),
