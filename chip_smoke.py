@@ -16,11 +16,13 @@ the script exits non-zero:
      of up to 128 bits on the H100), each timed beside its bound; then on
      both of K1's paths (one block a tile; the persistent K1, which
      cuda_blind_rotate.k1_persistent picks from 4 tiles an SM) at PARAM_OPT
-     8, 16, 32, 128, 144, 512, 2048 and 4096 bits and PARAM_TPU 8192 bits
-     (where its slice does not fit, one block a tile only), each path's words
-     against the plain version (its first 16 rows above 512 bits) and the
-     other path's, timed; then torch._int_mm on one step's product shapes
-     as a yardstick of the int8 product rate;
+     8, 16, 32, 128, 144, 512, 1024, 2048 and 4096 bits and PARAM_TPU 8192
+     bits (where its slice does not fit, one block a tile only), each path's
+     words against the plain version (its first 16 rows above 512 bits) and
+     the other path's, timed, and from 144 bits on K2's device ms a step
+     (the rule's K2, one profiled call); ptxas's registers and spills of
+     K2's two instances (no spill allowed); then torch._int_mm on one
+     step's product shapes as a yardstick of the int8 product rate;
   2. the vertical-packing kernel against vp_rotations_plain through a real
      circuit bootstrap: two cbs_level=1 toy sets (k+1 = 3; k+1 = 5 at a
      batch that fills neither a digit tile's group of 25 accumulators nor
@@ -1120,6 +1122,44 @@ def _peak_gib() -> str:
             f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
 
 
+def _k2_step_ms(fn, *args, steps: int) -> float:
+    """K2's device ms a step (br_inverse_crt_kernel's records over one
+    profiled call of `steps` steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if "br_inverse_crt_kernel" in e.key:
+            dev_us = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if dev_us is None else dev_us
+    return us / 1e3 / steps
+
+
+def _k2_registers() -> str:
+    """ptxas's registers and spills of K2's instances (blind_rotate.cu built
+    with -Xptxas -v into a temporary directory); raises on a spill."""
+    from tfhe_aes_tpu_torch.ops import cuda_build
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-o", os.path.join(tmp, "k2.so"),
+             str(cuda_build.CSRC / "blind_rotate.cu")],
+            capture_output=True, text=True, check=True)
+    report, name = [], ""
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "br_inverse_crt_kernel" in name and (
+                "registers" in line or "spill" in line):
+            report.append(f"{name[:32]}: {line.split(':')[-1].strip()}")
+            if re.search(r"[1-9]\d* bytes spill", line):
+                raise AssertionError(f"K2 spills: {name}: {line}")
+    return "; ".join(report)
+
+
 def _median_ms(fn, *args, runs: int = 3):
     """(the last result, the median ms) of `runs` synchronised calls."""
     times = []
@@ -1657,10 +1697,11 @@ def main() -> int:
               f"{path_ms['unsplit']:.1f} ms, split {path_ms['split']:.1f} "
               f"ms (the rule: {taken}), plain {plain_ms:.1f} ms, bound "
               f"{bound:.2f} ms ({bound_by})")
+    print(f"phase 1: K2's registers and spills: {_k2_registers()}")
     edge = cuda_blind_rotate.K1_TILES_PER_SM
     for params_k1, keys_k1, cl_k1, batches_k1 in (
             (PARAM_OPT, k_opt, cl_opt,
-             (8, 16, 32, 128, 144, 512, 2048, 4096)),
+             (8, 16, 32, 128, 144, 512, 1024, 2048, 4096)),
             (PARAM_TPU, keys, client, (aes_bits,))):
         primes = keys_k1.rplan.n_primes
         for n_batch in batches_k1:
@@ -1698,14 +1739,22 @@ def main() -> int:
                                f"the two K1 paths")
             taken = "persistent" if cuda_blind_rotate.k1_persistent(
                 params_k1, n_batch, primes, sms) else "tiled"
+            k2_ms = None
+            if params_k1 is PARAM_OPT and n_batch >= 144:
+                k2_ms = _k2_step_ms(
+                    cuda_blind_rotate.blind_rotate_cuda, *br_args, small,
+                    test, keys_k1.fwd_full, keys_k1.inv_crt_full,
+                    keys_k1.rot_table, steps=params_k1.lwe_dimension)
             bound, bound_by = rotate_bound(params_k1, keys_k1.rplan, n_batch)
             br_shapes.append({"shape": f"{params_k1.name} {n_batch} bits, "
                                        f"K1 paths",
                               "ms": path_ms[taken], "plain_ms": plain_ms,
                               "plain_rows": rows, "bound_ms": bound,
-                              "k1": taken, **{f"{k}_ms": v for k, v in
-                                              path_ms.items()}})
+                              "k1": taken, "k2_step_ms": k2_ms,
+                              **{f"{k}_ms": v for k, v in path_ms.items()}})
             shown = ", ".join(f"{k} {v:.1f} ms" for k, v in path_ms.items())
+            if k2_ms is not None:
+                shown += f", K2 {k2_ms:.4f} ms a step"
             if len(words) < 2:
                 shown += " (no persistent K1: its slice does not fit)"
             print(f"phase 1: blind rotate {params_k1.name} kernel == plain at "

@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Where the blind rotate's forward kernel K1 spends its time, by cutting
-stages out.
+"""Where the blind rotate's two kernels, K1 and K2, spend their time, by
+cutting stages out.
 
-    python3 scripts/br_stage_cut.py [--bits 2048] [--steps 32]
+    python3 scripts/br_stage_cut.py [--bits 2048] [--steps 32] [--only TEXT]
 
 Builds csrc/blind_rotate.cu and csrc/blind_rotate_k1.cu as they are and
 in variants with one stage removed by a textual cut (each cut is a (text,
 replacement) pair below, in the source of the variant's K1, or (file,
-text, replacement) for another file of csrc/, and must match the source
-exactly once, or the script fails), runs a rotation of --steps CMux
-steps on the same random inputs at PARAM_OPT (random BSK limbs, the set's
-own NTT matrices and twiddles) on the variant's K1 (one block a tile, or
-the persistent K1, forced through cuda_blind_rotate.K1_TILES_PER_SM), and
-prints K1's and K2's device time a step (torch.profiler, the records of
-one call over its steps) on one line a variant.  The cut variants' words
-are wrong by construction; the uncut ones are compared with
-blind_rotate_plain.  A stage's cost is the full
+text, replacement) for another file of csrc/, as all of K2's are, and
+must match the source exactly once, or the script fails), runs a rotation
+of --steps CMux steps on the same random inputs at PARAM_OPT (random BSK
+limbs, the set's own NTT matrices and twiddles) on the variant's K1 (one
+block a tile, or the persistent K1, forced through
+cuda_blind_rotate.K1_TILES_PER_SM), and prints K1's and K2's device time
+a step (torch.profiler, the records of one call over its steps) on one
+line a variant.  --only runs the uncut builds and the variants whose name
+holds TEXT.  The cut variants' words are wrong by construction; the uncut
+ones are compared with blind_rotate_plain.  A stage's cost is the full
 time minus the time without it, as far as the rest does not speed up or
 slow down for its absence.  Also prints ptxas's registers and spills of
 each kernel of the full build, and the card's SM clock and power draw
@@ -62,11 +63,40 @@ NO_EPILOGUE = NO_MAC + [
 NO_BSK = [(K1_BSK, "for (int i = 0; i < 0; ++i) {")]
 # The producer completes each stage's barrier without copying anything: the
 # products run on whatever shared memory holds.
-NO_COPIES = [("sm90_gemm.cuh",
-              """      mbar_expect_tx(&full[s], kStageBytes);
+RING_COPY = """      mbar_expect_tx(&full[s], kStageBytes);
       bulk_g2s(dst, a, kABytes, &full[s]);
-      bulk_g2s(dst + kABytes, b, kBBytes, &full[s]);""",
+      bulk_g2s(dst + kABytes, b, kBBytes, &full[s]);"""
+NO_COPIES = [("sm90_gemm.cuh", RING_COPY,
               "      (void)dst; mbar_arrive(&full[s]);")]
+
+# K2 (br_inverse_crt_kernel), on the persistent K1's path: its ring's
+# producer copies only the inverse matrix's B stage, or only the X rows' A
+# stage, and expects only those bytes; or its epilogue (the residues of
+# each prime's product, the CRT, acc += delta, the next digits) or a part
+# of it is emptied; or its blocks take one SM each.
+K2_NO_A_COPY = [("sm90_gemm.cuh", RING_COPY, """      mbar_expect_tx(&full[s], kBBytes);
+      (void)a;
+      bulk_g2s(dst + kABytes, b, kBBytes, &full[s]);""")]
+K2_NO_B_COPY = [("sm90_gemm.cuh", RING_COPY, """      mbar_expect_tx(&full[s], kABytes);
+      bulk_g2s(dst, a, kABytes, &full[s]);
+      (void)b;""")]
+K2_RESIDUES = "for (int n8 = 0; n8 < kCols2 / 8; ++n8)"
+K2_CRT = "    if (r >= r_hi) break;"
+K2_NO_EPILOGUE = [("blind_rotate.cu", K2_RESIDUES,
+                   K2_RESIDUES.replace("n8 < kCols2 / 8", "n8 < 0")),
+                  ("blind_rotate.cu", K2_CRT, K2_CRT.replace("r_hi", "0"))]
+K2_ACC_PREFETCH = "  if (threadIdx.x < 2 * (r_hi - r_lo))\n    sm90::prefetch_l2("
+K2_CRT_WORD = """      v[w] = (old[w] + crt_word(c, [&](int k) {
+               return static_cast<int>((yq[k] >> (16 * w)) & 0xFFFF);
+             })) & c.qmask;"""
+K2_ACC_STORE = """    out[0] = make_ulonglong2(v[0], v[1]);
+    out[1] = make_ulonglong2(v[2], v[3]);"""
+K2_DIGITS = "    if (A != nullptr) decompose_store(v, m2, a_lo, a_hi, s, A);"
+# K2's blocks ask for 110 KB more shared memory than they use: one block
+# an SM instead of two.
+K2_SMEM = "  const size_t smem2 = sm90::Ring<kBN2, kStages2>::kBytes +"
+K2_ONE_BLOCK = [("blind_rotate.cu", K2_SMEM,
+                 K2_SMEM.replace("smem2 = ", "smem2 = 110 * 1024 + "))]
 
 # The persistent K1 (br_forward_mac_kernel_persistent).
 P_RESIDUES = """    for (int g = 0; g < 8; ++g) {
@@ -122,6 +152,31 @@ VARIANTS = {
     "persistent K1 without digit copies": ("persistent", P_NO_COPIES),
     "persistent K1 products only, no digit copies":
         ("persistent", P_NO_EPILOGUE + P_NO_COPIES),
+    "K2 without the X copies (A stages)": ("persistent", K2_NO_A_COPY),
+    "K2 without the inverse matrix's copies (B stages)":
+        ("persistent", K2_NO_B_COPY),
+    "K2 without its epilogue (residues, CRT, acc, digits)":
+        ("persistent", K2_NO_EPILOGUE),
+    "K2 products only, no operand copies":
+        ("persistent", K2_NO_EPILOGUE + NO_COPIES),
+    "K2 without the residues of each prime's product":
+        ("persistent", K2_NO_EPILOGUE[:1]),
+    "K2 without the CRT loop (CRT, acc, digits)":
+        ("persistent", K2_NO_EPILOGUE[1:]),
+    "K2 without the CRT's arithmetic": ("persistent", [(
+        "blind_rotate.cu", K2_CRT_WORD, "      v[w] = old[w] + (yq[0] >> w);")]),
+    "K2 without the acc stores": ("persistent", [(
+        "blind_rotate.cu", K2_ACC_STORE, "    (void)out;")]),
+    "K2 without the next digits": ("persistent", [(
+        "blind_rotate.cu", K2_DIGITS, "    (void)a_lo; (void)a_hi;")]),
+    "K2 one block an SM": ("persistent", K2_ONE_BLOCK),
+    "K2 without its epilogue, one block an SM":
+        ("persistent", K2_NO_EPILOGUE + K2_ONE_BLOCK),
+    "K2 products only, no operand copies, one block an SM":
+        ("persistent", K2_NO_EPILOGUE + NO_COPIES + K2_ONE_BLOCK),
+    "K2 without the acc prefetch into L2": ("persistent", [(
+        "blind_rotate.cu", K2_ACC_PREFETCH, K2_ACC_PREFETCH.replace(
+            "threadIdx.x < 2 * (r_hi - r_lo)", "threadIdx.x < 0"))]),
 }
 
 
@@ -235,6 +290,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bits", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--only", default="",
+                    help="run only the variants whose name holds this text "
+                         "(and the uncut builds)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("br_stage_cut: no CUDA device", file=sys.stderr)
@@ -248,19 +306,21 @@ def main() -> int:
     lwe, test = random_batch(k, args.bits, args.steps, dev)
     br_args = (k.rplan, params, k.bsk_limbs, lwe, test)
     argtypes = cuda_blind_rotate._lib().argtypes
+    variants = {name: v for name, v in VARIANTS.items()
+                if not v[1] or args.only in name}
     want = None
     with tempfile.TemporaryDirectory() as tmp:
-        with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
+        with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
             built = list(pool.map(
                 lambda item: build(pathlib.Path(tmp), *item,
                                    verbose=item[0] == 0),
-                enumerate(VARIANTS.values())))
+                enumerate(variants.values())))
         ptxas_report(built[0][1])
         real_lib = cuda_blind_rotate._lib, cuda_blind_rotate._k1_lib
         real_edge = cuda_blind_rotate.K1_TILES_PER_SM
         try:
-            for (name, (path, _)), ((lib, k1lib), _) in zip(VARIANTS.items(),
-                                                           built):
+            for (name, (path, cuts)), ((lib, k1lib), _) in zip(
+                    variants.items(), built):
                 fn = lib.tfhe_blind_rotate
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
                 prepare = k1lib.tfhe_k1_prepare
@@ -276,7 +336,7 @@ def main() -> int:
                     return cuda_blind_rotate.blind_rotate_cuda(
                         *br_args, k.fwd_full, k.inv_crt_full, k.rot_table)
                 cuda_blind_rotate._lib = lambda fn=fn: fn
-                if not cuts_of(name):
+                if not cuts:
                     if want is None:
                         want = blind_rotate.blind_rotate_plain(
                             *br_args, k.rfwd_limbs, k.rinv_crt_limbs,
@@ -293,10 +353,6 @@ def main() -> int:
             cuda_blind_rotate._lib, cuda_blind_rotate._k1_lib = real_lib
             cuda_blind_rotate.K1_TILES_PER_SM = real_edge
     return 0
-
-
-def cuts_of(name: str) -> list:
-    return VARIANTS[name][1]
 
 
 if __name__ == "__main__":

@@ -155,13 +155,15 @@ def test_blind_rotate_kernel_matches_plain_at_param_opt_split(dev):
 
 
 @pytest.mark.parametrize("set_name,n_batch", [("PARAM_OPT", 512),
+                                              ("PARAM_OPT", 2048),
                                               ("PARAM_TPU", 1024)])
 def test_blind_rotate_kernel_matches_plain_at_bulk_batches(dev, set_name,
                                                            n_batch):
     """A bulk batch on device keys from seed 0: PARAM_OPT at 512 bits (a
-    4-block CTR round) runs K1 persistently; PARAM_TPU at 1024 bits (its
-    two-limb digits make a 128 KB forward slice, which leaves no room for
-    the ring) one block a tile."""
+    4-block CTR round) and 2048 bits (a 16-block round: K2's 1280 tiles,
+    almost five times what the card holds at once) runs K1 persistently;
+    PARAM_TPU at 1024 bits (its two-limb digits make a 128 KB forward
+    slice, which leaves no room for the ring) one block a tile."""
     from tfhe_aes_tpu_torch import params as param_sets
     params = getattr(param_sets, set_name)
     client = Client(params, seed=0)

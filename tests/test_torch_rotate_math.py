@@ -96,6 +96,8 @@ def test_barrett32_refuses_out_of_range():
     (PARAM_OPT, 128, 5, 5),          # key schedule, rounds: 80 tiles < 88
     (PARAM_OPT, 144, 5, 1),          # bulk ripple add, 96 tiles
     (PARAM_OPT, 2048, 5, 1),         # bulk rounds, 1280 tiles
+    (PARAM_OPT, 4096, 5, 1),         # the noise study's batch
+    (PARAM_TPU, 2048, 5, 1),         # the same N and primes: the same rule
     (PARAM_TOY, 9, 3, 3),            # fewer primes: a cluster of P
     (PARAM_TOY, 896, 3, 3),          # 4 x 21 = 84 tiles
     (PARAM_TOY, 897, 3, 1),          # 4 x 22 = 88 tiles
@@ -248,6 +250,23 @@ def test_kmajor_tiles_layout():
     off = (((c // cbr.BK) * (rows // 8) + r // 8) * 8 * cbr.BK
            + ((c % cbr.BK) // 16) * 128 + (r % 8) * 16 + c % 16)
     np.testing.assert_array_equal(flat.numpy()[off], m.numpy())
+
+
+@pytest.mark.parametrize("params", SETS, ids=lambda p: p.name)
+def test_k2_writes_four_coefficients_a_word(params):
+    """K2's CRT takes four coefficients n .. n + 3 (n % 4 == 0) of a row a
+    thread; in the k-major tiles of the digits A their digits at every
+    digit row lie in one aligned 4-byte word, at the offset of n (and of
+    N + n for the second limb of wide digits), which decompose_store<4>
+    writes at once."""
+    n = params.polynomial_size
+    dn = 2 * n if params.pbs_base_log > 8 else n
+    rows1, _ = cbr.scratch_rows(params, 9)
+    r, c = np.meshgrid(np.arange(rows1), np.arange(0, dn, 4), indexing="ij")
+    first = _offset(r, c, rows1)
+    assert (first % 4 == 0).all()
+    for w in range(1, 4):
+        np.testing.assert_array_equal(_offset(r, c + w, rows1), first + w)
 
 
 # -- emulation of the kernel's two launches a step ----------------------------

@@ -31,14 +31,14 @@
 // back:
 //   * products on mma.sync from registers, loads never overlapping math:
 //     both products run on wgmma.mma_async from a ring of shared-memory
-//     stages (four in K1, three in K2) that one producer warp fills with
+//     stages (four in K1, five in K2) that one producer warp fills with
 //     cp.async.bulk under mbarriers (sm90_gemm.cuh); two consumer
 //     warpgroups do the math.  The
 //     operands are stored in device memory in the tile order wgmma reads,
 //     so each stage is one contiguous bulk copy.  What the epilogues read
-//     besides (the BSK rows, the accumulator words, the masks) is fetched
-//     with cp.async or plain loads issued before the product, so it lands
-//     while the tensor cores run;
+//     besides (the BSK rows, the masks; K2's accumulator words, prefetched
+//     into L2) is fetched with cp.async or plain loads issued before the
+//     product, so it lands while the tensor cores run;
 //   * int32 intermediates through device memory: the forward residues dh
 //     (629 MB at 4096 bits) live only in shared memory between K1's
 //     product and its MAC, and the inverse residues Y (210 MB) only in
@@ -59,22 +59,37 @@
 // slice and BSK rows for a run of row tiles (br_forward_mac_kernel_persistent
 // in csrc/blind_rotate_k1.cu).  A K2
 // block owns 128 rows of (bit, GLWE component) and 32 output coefficients
-// across all primes, two blocks an SM, so one block's epilogue overlaps
-// the other's products.  Where that grid fills under a third of the card
+// across all primes, two blocks an SM, so one block's epilogue can run
+// beside the other's products; its CRT gives each thread four adjacent
+// coefficients of a row, so that the accumulator words move 16 bytes, the
+// residues 8 and each digit row's digits 4 at a time.  Where that grid
+// fills under a third of the card
 // (at N = 512 on the H100 a batch of up to 128 bits: every rotate of a
 // session), a block streaming all P x 2N / 64 stages in one chain is what a
 // step waits for: there K2 runs a thread-block cluster of P blocks a tile,
 // one prime a block, which share the CRT's rows through distributed shared
 // memory (the chain P times shorter, the epilogue split P ways).
 //
-// Left for later: on the H100 at PARAM_OPT 2048 bits K1 one block a tile
-// takes 0.86 ms a step, 0.27 of it its products with their operand copies
-// and the rest its epilogue (stage cuts, scripts/br_stage_cut.py); the
+// Left for later (stage cuts, scripts/br_stage_cut.py, on the H100 at
+// PARAM_OPT 2048 bits): K1 one block a tile takes 0.79 ms a step; the
 // persistent K1 0.55 ms, 0.16 of it without its epilogue, whose residues'
 // reductions and __dp4a MAC (two warpgroups an SM) are the rest.  Clusters
 // of two CTAs sharing the fwd tile through multicast copies gave the same
-// words but ran slower.  A persistent step loop would remove the gaps
-// between the 2n launches (a CUDA graph of the WoPBS already holds them).
+// words but ran slower.  K2 takes 0.24 ms a step: 0.12 without its
+// epilogue, 0.07 without its operand copies too.  Its blocks read 1.26 GB
+// a step from L2 (X 52.4 MB once a coefficient tile, 839 MB; the inverse
+// matrices 5.24 MB once a row tile, 419 MB), yet without X's copies K2
+// took only 6% less: L2 traffic does not set its pace, and multicasting X
+// over a cluster of coefficient tiles was not built.  Its mainloop moves
+// 28 KB of shared memory a stage (16 KB read by wgmma, 12 KB written by
+// the copies) against 16 KB without the copies, in the same ratio as the
+// two times; the residues of each prime (0.06 ms) and the CRT (0.05)
+// follow it.  Two groups of warpgroups a block walking every other tile
+// (each group's epilogue beside the other's products) ran at 0.30-0.38 ms:
+// 20 warps an SM leave 96 registers a thread, and it spilled.  Neither a
+// second wgmma group in flight (Ring::consume_pipelined) nor a persistent
+// step loop is tried here (a CUDA graph of the WoPBS already holds the
+// gaps between the 2n launches).
 //
 // Exact by construction: the products are exact int32 sums, the reductions
 // exact, and the CRT alpha uses the same 2^-40 fixed point as the plain
@@ -84,37 +99,52 @@
 namespace tfhe {
 
 constexpr int kBitStride1 = kConsumers / kCols1;
-// K2: 32 output coefficients (+ their hi columns) a tile, three stages,
-// two blocks an SM (~108 KB of shared memory each).
-constexpr int kCols2 = 32, kBN2 = 2 * kCols2, kStages2 = 3, kBlocks2 = 2;
+// K2: 32 output coefficients (+ their hi columns) a tile, five stages,
+// two blocks an SM (~100 KB of shared memory each).
+constexpr int kCols2 = 32, kBN2 = 2 * kCols2, kStages2 = 5, kBlocks2 = 2;
 constexpr int kMaxBitsPerThread = kRowsA / 16 / kBitStride1;  // rpad 16
 
-// Balanced gadget digits of one accumulator word (row m2 = b (k+1) + u of
-// acc) into the digit rows b * rpad + u * lev + l of A; a_lo (a_hi) is the
-// k-major column offset of the word's coefficient n (N + n: wide digits as
-// two base-2^6 limbs).
-__device__ __forceinline__ void decompose_store(unsigned long long v, int m2,
-                                                int a_lo, int a_hi,
-                                                const Shape& s,
-                                                int8_t* __restrict__ A) {
-  if (s.shift > 0) v = (v + (1ULL << (s.shift - 1))) >> s.shift;
+// Balanced gadget digits of W accumulator words of one row (m2 = b (k+1) +
+// u of acc) and W consecutive coefficients n, n + 1, ... into the digit
+// rows b * rpad + u * lev + l of A; a_lo (a_hi) is the k-major column
+// offset of the first word's coefficient n (N + n: wide digits as two
+// base-2^6 limbs).  W = 4 (n % 4 == 0): the four words' digits of a row
+// lie side by side, one 4-byte store.
+template <int W>
+__device__ __forceinline__ void decompose_store(
+    const unsigned long long (&v)[W], int m2, int a_lo, int a_hi,
+    const Shape& s, int8_t* __restrict__ A) {
+  static_assert(W == 1 || W == 4, "one word or four");
   const int b = m2 / s.J;
   const int row0 = b * s.rpad + (m2 - b * s.J) * s.lev;
   const unsigned long long mask = (1ULL << s.blog) - 1;
   const unsigned long long half = 1ULL << (s.blog - 1);
-  unsigned long long carry = 0;
-  for (int l = s.lev - 1; l >= 0; --l) {
-    const unsigned long long tv =
-        ((v >> (s.blog * (s.lev - 1 - l))) & mask) + carry;
-    carry = tv >= half ? 1 : 0;
-    const int d = static_cast<int>(tv) - static_cast<int>(carry << s.blog);
+  unsigned long long u[W];
+  unsigned long long carry[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    u[w] = s.shift > 0 ? (v[w] + (1ULL << (s.shift - 1))) >> s.shift : v[w];
+    carry[w] = 0;
+  }
+  for (int l = s.lev - 1; l >= 0; --l) {  // the least significant first
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const unsigned long long tv = (u[w] & mask) + carry[w];
+      u[w] >>= s.blog;
+      carry[w] = tv >= half ? 1 : 0;
+      const int d = static_cast<int>(tv) - static_cast<int>(carry[w] << s.blog);
+      const int h6 = s.wide ? (d + 32) >> 6 : 0;
+      lo |= static_cast<uint32_t>(static_cast<uint8_t>(d - (h6 << 6))) << (8 * w);
+      hi |= static_cast<uint32_t>(static_cast<uint8_t>(h6)) << (8 * w);
+    }
     const int ro = kmajor_row(row0 + l);
-    if (s.wide) {
-      const int h6 = (d + 32) >> 6;
-      A[a_lo + ro] = static_cast<int8_t>(d - (h6 << 6));
-      A[a_hi + ro] = static_cast<int8_t>(h6);
+    if constexpr (W == 4) {
+      *reinterpret_cast<uint32_t*>(A + a_lo + ro) = lo;
+      if (s.wide) *reinterpret_cast<uint32_t*>(A + a_hi + ro) = hi;
     } else {
-      A[a_lo + ro] = static_cast<int8_t>(d);
+      A[a_lo + ro] = static_cast<int8_t>(lo);
+      if (s.wide) A[a_hi + ro] = static_cast<int8_t>(hi);
     }
   }
 }
@@ -126,8 +156,9 @@ __global__ void br_decompose_kernel(const long long* __restrict__ acc,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= s.B * s.J * s.N) return;
   const int n = i % s.N;
-  decompose_store(static_cast<unsigned long long>(acc[i]), i / s.N,
-                  kmajor_col(n, s.rows1), kmajor_col(s.N + n, s.rows1), s, A);
+  const unsigned long long v[1] = {static_cast<unsigned long long>(acc[i])};
+  decompose_store(v, i / s.N, kmajor_col(n, s.rows1),
+                  kmajor_col(s.N + n, s.rows1), s, A);
 }
 
 // K1: forward product + residues + MAC + twiddle -> X, for 128 digit rows
@@ -298,9 +329,7 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
   __shared__ Prime32 sp[kMaxPrimes];
   const int n_ys = kSplit ? 1 : c.count;  // [n_ys][128][32] residues
   uint16_t* ys = reinterpret_cast<uint16_t*>(smem + Ring::kBytes);
-  long long* accs = reinterpret_cast<long long*>(
-      smem + Ring::kBytes + n_ys * kRowsA * kCols2 * 2);  // [128][32]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(accs + kRowsA * kCols2);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ys + n_ys * kRowsA * kCols2);
   Ring ring{smem, bars, bars + kStages2};
   const int k0 = kSplit ? blockIdx.x % c.count : 0;  // the first prime
   const int ct = kSplit ? blockIdx.x / c.count : blockIdx.x;
@@ -339,14 +368,11 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
     return;
   }
 
-  // This block's accumulator words land in shared memory during the
-  // products.
-  for (int i = threadIdx.x; i < (r_hi - r_lo) * kCols2 / 2; i += kConsumers) {
-    const int r = r_lo + i / (kCols2 / 2), cc = (i % (kCols2 / 2)) * 2;
-    sm90::cp_async16(accs + r * kCols2 + cc,
-                     acc + (long long)(rt * kRowsA + r) * s.N + n0 + cc);
-  }
-  sm90::cp_async_commit();
+  // The accumulator words this block finishes, into L2 during the products:
+  // a 128-byte line a thread.
+  if (threadIdx.x < 2 * (r_hi - r_lo))
+    sm90::prefetch_l2(acc + (long long)(rt * kRowsA + r_lo + threadIdx.x / 2) *
+                                s.N + n0 + 16 * (threadIdx.x & 1));
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
@@ -367,30 +393,57 @@ br_inverse_crt_kernel(const int8_t* __restrict__ X,
         *reinterpret_cast<uint32_t*>(yk + row * kCols2 + col0) = pack16(y0, y1);
       }
   });
-  sm90::cp_async_wait_all();
   if constexpr (kSplit)
     sm90::cluster_sync();  // every prime's residues in its block
   else
     sm90::consumers_sync();
 
   // Explicit CRT: x = sum_k y_k (M/p_k) - alpha M, alpha from 2^-40 fixed
-  // point; thread -> coefficient t % kCols2, rows r_lo + t / kCols2 + step i.
-  constexpr int kRowStep = kConsumers / kCols2;
-  const int col = threadIdx.x % kCols2;
-  const int n = n0 + col;
+  // point.  Thread -> four coefficients 4 (t % 8) .. + 3 and the rows
+  // r_lo + t / 8 + 32 i: the accumulator words in 16-byte loads and stores
+  // (all of a thread's issued before its first CRT), each prime's four
+  // residues in one 8-byte load, each digit row's four digits in one
+  // 4-byte store.
+  constexpr int kQuads = kCols2 / 4, kRowStep = kConsumers / kQuads;
+  constexpr int kRowsThread = kRowsA / kRowStep;
+  const int n = n0 + 4 * (threadIdx.x % kQuads);
+  const int r0 = r_lo + threadIdx.x / kQuads;
   const int a_lo = kmajor_col(n, s.rows1), a_hi = kmajor_col(s.N + n, s.rows1);
-#pragma unroll 4
-  for (int r = r_lo + threadIdx.x / kCols2; r < r_hi; r += kRowStep) {
+  ulonglong2 words[kRowsThread][2];
+#pragma unroll
+  for (int i = 0; i < kRowsThread; ++i)
+    if (r0 + i * kRowStep < r_hi) {
+      const ulonglong2* w = reinterpret_cast<const ulonglong2*>(
+          acc + (long long)(rt * kRowsA + r0 + i * kRowStep) * s.N + n);
+      words[i][0] = w[0];
+      words[i][1] = w[1];
+    }
+#pragma unroll
+  for (int i = 0; i < kRowsThread; ++i) {
+    const int r = r0 + i * kRowStep;
+    if (r >= r_hi) break;
     const int m2 = rt * kRowsA + r;
-    const uint16_t* y = ys + r * kCols2 + col;
-    unsigned long long x;
-    if constexpr (kSplit)
-      x = crt_word(c, [&](int k) { return sm90::ld_cluster_u16(y, k); });
-    else
-      x = crt_word(c, [&](int k) { return y[k * kRowsA * kCols2]; });
-    const unsigned long long v =
-        (static_cast<unsigned long long>(accs[r * kCols2 + col]) + x) & c.qmask;
-    acc[(long long)m2 * s.N + n] = static_cast<long long>(v);
+    const uint16_t* y = ys + r * kCols2 + n - n0;
+    uint64_t yq[kMaxPrimes];  // four residues a prime
+#pragma unroll
+    for (int k = 0; k < kMaxPrimes; ++k) {
+      if (k >= c.count) break;
+      if constexpr (kSplit)
+        yq[k] = sm90::ld_cluster_u64(y, k);
+      else
+        yq[k] = *reinterpret_cast<const uint64_t*>(y + k * kRowsA * kCols2);
+    }
+    const unsigned long long old[4] = {words[i][0].x, words[i][0].y,
+                                       words[i][1].x, words[i][1].y};
+    unsigned long long v[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      v[w] = (old[w] + crt_word(c, [&](int k) {
+               return static_cast<int>((yq[k] >> (16 * w)) & 0xFFFF);
+             })) & c.qmask;
+    ulonglong2* out = reinterpret_cast<ulonglong2*>(acc + (long long)m2 * s.N + n);
+    out[0] = make_ulonglong2(v[0], v[1]);
+    out[1] = make_ulonglong2(v[2], v[3]);
     if (A != nullptr) decompose_store(v, m2, a_lo, a_hi, s, A);
   }
   if constexpr (kSplit) sm90::cluster_sync();  // none leaves while read
@@ -472,7 +525,7 @@ extern "C" int tfhe_blind_rotate(
                                  : br_inverse_crt_kernel<false>;
   const size_t smem2 = sm90::Ring<kBN2, kStages2>::kBytes +
                        (size_t)(split ? 1 : n_primes) * kRowsA * kCols2 * 2 +
-                       (size_t)kRowsA * kCols2 * 8 + 2 * kStages2 * 8;
+                       2 * kStages2 * 8;
   const K1PersistentFn k1p = reinterpret_cast<K1PersistentFn>(k1_persistent);
   if (k1_blocks > 0 && k1p == nullptr) return (int)cudaErrorInvalidValue;
   TFHE_CHECK(raise_smem_limit((const void*)k1, smem1));

@@ -124,6 +124,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Fetches the line of global address p into L2, without waiting.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 // Named barrier over the consumer threads only (the producer warp may have
 // left).
 __device__ __forceinline__ void consumers_sync() {
@@ -142,16 +147,17 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
-// The 16-bit word at this block's shared-memory address p, read from the
-// shared memory of the cluster's block `rank` (distributed shared memory).
-__device__ __forceinline__ uint16_t ld_cluster_u16(const void* p, int rank) {
+// The 64-bit word at this block's shared-memory address p (8-byte
+// aligned), read from the shared memory of the cluster's block `rank`
+// (distributed shared memory).
+__device__ __forceinline__ uint64_t ld_cluster_u64(const void* p, int rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
                : "r"(smem_u32(p)), "r"(rank));
-  uint16_t v;
-  asm volatile("ld.shared::cluster.u16 %0, [%1];\n"
-               : "=h"(v)
+  uint64_t v;
+  asm volatile("ld.shared::cluster.u64 %0, [%1];\n"
+               : "=l"(v)
                : "r"(remote)
                : "memory");
   return v;
@@ -269,29 +275,37 @@ struct Ring {
   }
 
   // Consumers (both warpgroups): n stages, K blocks of kb_per_tile stages
-  // per output tile.  The first stage of a tile overwrites d.  Each stage
-  // is released as soon as its wgmma group has completed, so the producer
-  // keeps STAGES - 1 copies in flight; after the last stage of a tile,
-  // epi(tile) runs.
+  // per output tile (n % kb_per_tile == 0).  The first stage of a tile
+  // overwrites d.  Each stage is released as soon as its wgmma group has
+  // completed, so the producer keeps STAGES - 1 copies in flight; after the
+  // last stage of a tile, epi(tile) runs, outside the stage loop (called
+  // inside it under a branch, K2's epilogue made its step at PARAM_OPT 2048
+  // bits 0.267 ms against 0.234, and the tiled K1's 0.86 against 0.79).
   template <class Epi>
   __device__ void consume(int n, int kb_per_tile, int (&d)[BN / 2], Epi epi) {
     const int wg = threadIdx.x >> 7;
     const bool leader = (threadIdx.x & 127) == 0;
-    for (int i = 0; i < n; ++i) {
-      const int s = i % STAGES;
-      const int kb = i % kb_per_tile;
-      mbar_wait(&full[s], (i / STAGES) & 1);
-      const uint8_t* a = buf + s * kStageBytes + wg * (kABytes / 2);
-      const uint8_t* b = buf + s * kStageBytes + kABytes;
-      wgmma_fence();
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n / kb_per_tile; ++t) {
+      for (int kb = 0; kb < kb_per_tile; ++kb) {
+        mbar_wait(&full[s], phase);
+        const uint8_t* a = buf + s * kStageBytes + wg * (kABytes / 2);
+        const uint8_t* b = buf + s * kStageBytes + kABytes;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk)
-        wgmma_tile<BN>(d, desc_kmajor(a + kk * 256), desc_kmajor(b + kk * 256),
-                       kb > 0 || kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      if (leader) mbar_arrive(&empty[s]);
-      if (kb == kb_per_tile - 1) epi(i / kb_per_tile);
+        for (int kk = 0; kk < kBK / 32; ++kk)
+          wgmma_tile<BN>(d, desc_kmajor(a + kk * 256),
+                         desc_kmajor(b + kk * 256), kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (leader) mbar_arrive(&empty[s]);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      epi(t);
     }
   }
 
